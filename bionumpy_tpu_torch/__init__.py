@@ -10,12 +10,17 @@ kernel runs its plain PyTorch version.
 Ported so far: exact gzip-FASTQ -> k-mer counting
 (pipeline.count_kmers_fastq) and the streamed k-mer checksum
 (ops.kmers.kmer_checksum_streamed), through the hand-written kernels of
-csrc/kmers.cu.
+csrc/kmers.cu; the gzip-FASTQ motif scan to exact match positions
+(pipeline.get_motif_matches_fastq, with PWM and read_jaspar_matrix),
+through the hand-written kernel of csrc/pwm.cu.
 """
 from . import instrument
+from .io.jaspar import read_jaspar_matrix
 from .ops.kmers import kmer_checksum_streamed
-from .pipeline import AccOverflow, count_kmers_fastq
+from .pipeline import AccOverflow, count_kmers_fastq, get_motif_matches_fastq
 from .sequence.count_encoded import SparseEncodedCounts
+from .sequence.position_weight_matrix import PWM
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
+           "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
            "SparseEncodedCounts", "AccOverflow", "instrument"]

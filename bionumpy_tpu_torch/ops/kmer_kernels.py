@@ -87,7 +87,7 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type != "cpu":
-        raise ValueError(f"no k-mer kernel for device {t.device}")
+        raise ValueError(f"no kernel for device {t.device}")
     return False
 
 

@@ -16,6 +16,10 @@ ones, so wall time approaches max(host stage, device stage) instead of
 the sum.  Every stage reports through bionumpy_tpu_torch.instrument.
 Hashes, counts and stats equal those of the JAX package's
 count_kmers_fastq on the same file.
+
+get_motif_matches_fastq streams the same batches through the motif scan
+(pwm_scores kernel + on-device match compaction, ops/pwm.py) and fetches
+only the match positions, one batch late.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from .io.pgzip import _inflate_segment, inflate_members, member_offsets
 from .ops.device import bucket_size, resolve_device
 from .ops.kmer_kernels import MAX_K
 from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
+from .ops.pwm import pwm_match_compact, pwm_scores_packed
 from .parallel.sparse_parallel import merge_hash_tables
 from .sequence.count_encoded import SparseEncodedCounts
 
@@ -976,6 +981,110 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
              "n_kmers": int(meta_h[1])}
     return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
                                counts), stats
+
+
+def get_motif_matches_fastq(path: str, pwm, threshold: float,
+                            cap: int = 1 << 20,
+                            target_bases: int = TARGET_BUCKET - (1 << 21),
+                            device=None, n_threads: int = None, mesh=None):
+    """Whole-job PWM motif scan of a FASTQ file, plain or (multi-member)
+    gzip: every window of every read is scored on the device, and the
+    positions scoring above `threshold` (in float32) whose window stays
+    inside its read are compacted there, so the host fetches the matches
+    and not the scores.
+
+    `pwm`: a PWM, or a (4, w) matrix over ACGT, w <= 32.  `device`: None
+    is the card ("cuda"), which must be present; pass "cpu" to run the
+    kernel's plain version on the host.  `cap` bounds the matches of one
+    batch: a batch with more raises ValueError.  `mesh=` (multi-device)
+    is not ported yet.
+
+    Returns (read indices, in-read offsets, stats {n_reads, n_bases,
+    n_matches}), sorted by (read, offset); equal to the JAX package's
+    get_motif_matches_fastq on the same file."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
+            "multi-device)")
+    matrix = pwm.matrix if hasattr(pwm, "matrix") else np.asarray(pwm)
+    matrix32 = np.ascontiguousarray(matrix, np.float32)
+    if matrix32.ndim != 2 or matrix32.shape[0] != 4:
+        raise ValueError(f"the motif scan needs a (4, w) matrix over ACGT, "
+                         f"got shape {matrix32.shape}")
+    w = matrix32.shape[1]
+    device = resolve_device(device)
+    if n_threads is None:
+        n_threads = min(8, os.cpu_count() or 1)
+    matrix_d = torch.from_numpy(matrix32).to(device)
+    rows_parts, offs_parts = [], []
+    n_reads = n_bases = n_matches = 0
+    # the launched batch not yet fetched: (positions, n_matches, host
+    # words, host ends, n_reads, index of its first read)
+    pending = None
+
+    def fetch(batch):
+        nonlocal n_matches
+        pos_d, nm_d, _words, ends, nr, read_base = batch
+        with stage("D2H-matches"):
+            hits = int(nm_d)
+            if hits > cap:
+                raise ValueError(f"batch had {hits} matches > cap {cap}; "
+                                 f"raise cap")
+            pos = pos_d[:hits].cpu().numpy()
+        ends_host = ends[:nr]
+        rows = np.searchsorted(ends_host, pos, side="right")
+        starts = np.concatenate([[0], ends_host])[rows]
+        rows_parts.append(rows + read_base)
+        offs_parts.append(pos - starts)
+        n_matches += hits
+
+    def launch(parsed):
+        nonlocal pending, n_reads, n_bases
+        words, ends, nb, nr = parsed
+        with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+            words_d = torch.from_numpy(words.view(np.int32)).to(
+                device, non_blocking=True)
+            ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
+        with stage("dispatch"):
+            scores = pwm_scores_packed(words_d, matrix_d, w)
+            pos_d, nm_d = pwm_match_compact(scores, ends_d, nb, threshold,
+                                            w, cap)
+        # fetch one batch late, so the host never waits on the batch it
+        # just launched; a batch keeps its host arrays alive until its
+        # fetch, which waits for its work and so for its asynchronous
+        # copies
+        if pending is not None:
+            fetch(pending)
+        pending = (pos_d, nm_d, words, ends, nr, n_reads)
+        n_reads += nr
+        n_bases += nb
+
+    pool = ThreadPoolExecutor(n_threads)
+    worker = ThreadPoolExecutor(1)
+    try:
+        # the worker parses batch i+1 while batch i launches
+        parsed = None
+        for raw in _prefetched(_batch_arrays(path, target_bases, pool)):
+            nxt = worker.submit(_parse_batch, raw)
+            if parsed is not None:
+                launch(parsed.result())
+            parsed = nxt
+        if parsed is not None:
+            launch(parsed.result())
+        if pending is not None:
+            fetch(pending)
+    finally:
+        worker.shutdown(wait=False)
+        pool.shutdown(wait=False)
+
+    rows = np.concatenate(rows_parts) if rows_parts \
+        else np.empty(0, np.int64)
+    offs = np.concatenate(offs_parts) if offs_parts \
+        else np.empty(0, np.int64)
+    order = np.lexsort((offs, rows))
+    stats = {"n_reads": n_reads, "n_bases": n_bases,
+             "n_matches": n_matches}
+    return rows[order], offs[order], stats
 
 
 def merge_sorted_tables(h1, c1, h2, c2):

@@ -3,23 +3,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, gzip FASTQ -> exact 31-mer (hash, count)
-table, at the full size of the benchmark's headline job (2048 gzip
-members, ~446 M bases, 2.048 M reads, generated from a seed), and holds
-every kernel of the path against its plain PyTorch version.  Phases,
-each of which raises on failure:
+Drives the port's two paths at full size and holds every kernel of
+them against its plain PyTorch version: gzip FASTQ -> exact 31-mer
+(hash, count) table, on the benchmark's headline job (2048 gzip members,
+~446 M bases, 2.048 M reads, generated from a seed), and gzip FASTQ ->
+exact PWM match positions, on the motif job's shape (the first 512
+members of the same file, ~111 M bases).  Phases, each of which raises
+on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
-  2. build     the host library (g++) and the CUDA kernels (nvcc) from
-               the sources in the checkout, both compilers at once
-  3. kernels   kmer_keys_kernel and kmer_fullsum_kernel against their
-               plain versions at one full batch (2^25 positions, k=31
-               and k=15), then timed with CUDA events (median of 15)
+  2. build     the host library (g++) and the two CUDA libraries (nvcc)
+               from the sources in the checkout, all compilers at once
+  3. kernels   kmer_keys_kernel, kmer_fullsum_kernel and
+               pwm_scores_kernel against their plain versions at one
+               full batch (2^25 positions; k=31 and k=15; w=1, 11, 17,
+               32 with -inf cells), then timed with CUDA events (median
+               of 15) beside a library call where one computes the same
   4. job       count_kmers_fastq on the card, warm-up + timed run; the
                table must equal a numpy recount, and the kmer_keys
                kernel must have launched once per batch
-  5. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
+  5. motif     get_motif_matches_fastq on the card over the first 512
+               members, warm-up + timed run; the (read, offset) matches
+               must equal a numpy recount, and the pwm_scores kernel
+               must have launched once per batch
+  6. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
                with the table's sums
 
 It prints a {"kernels": [...]} line, nvidia-smi's line, and last
@@ -41,6 +49,9 @@ import numpy as np
 import torch
 
 K = 31
+MOTIF_WINDOW = 11
+MOTIF_MEMBERS = 512           # the motif job: 16 variants x 32 copies
+MOTIF_PERCENTILE = 99.75      # threshold keeps ~0.25% of windows
 BATCH_POSITIONS = 1 << 25     # one full device batch
 N_VARIANTS, COPIES, N_READS = 64, 32, 1000
 MUTATION_RATE = 0.01
@@ -147,6 +158,38 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
     return float(np.median(times))
 
 
+def pwm_matrix(seed: int, window: int):
+    """JASPAR-style PWM of seeded integer counts 0-30 (the port's PWM),
+    with zero counts and so -inf cells."""
+    from bionumpy_tpu_torch import PWM
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 31, (4, window))
+    counts[rng.integers(0, 4, 2), rng.integers(0, window, 2)] = 0
+    return PWM.from_dict(dict(zip("ACGT", counts.tolist())))
+
+
+def numpy_pwm_windows(codes, lengths, matrix32):
+    """float32 score of every window of the reads, added in the order
+    j = 0..w-1 as the kernel adds them, and whether the window lies
+    inside its read."""
+    w = matrix32.shape[1]
+    s = np.zeros(len(codes), np.float32)
+    for j in range(w):
+        s[: len(codes) - j] += matrix32[codes[j:], j]
+    ends = np.cumsum(lengths)
+    return s, np.repeat(ends, lengths) - np.arange(len(codes)) >= w
+
+
+def numpy_pwm_matches(codes, lengths, matrix32, threshold):
+    """(rows, offsets) of the windows inside their read scoring above
+    `threshold`."""
+    s, inside = numpy_pwm_windows(codes, lengths, matrix32)
+    hits = np.flatnonzero((s > threshold) & inside)
+    ends = np.cumsum(lengths)
+    rows = np.searchsorted(ends, hits, side="right")
+    return rows, hits - np.concatenate([[0], ends])[rows]
+
+
 def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT_OPS_PER_S * 1e3
@@ -158,18 +201,22 @@ def bound(n_bytes: int, n_ops: int):
 def phase_build():
     from bionumpy_tpu_torch import native
     from bionumpy_tpu_torch.ops import _build, kmer_kernels
+    from bionumpy_tpu_torch.ops import pwm_kernels
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         host = pool.submit(native._load)
-        cuda = pool.submit(kmer_kernels.build)
+        cuda = [pool.submit(kmer_kernels.build),
+                pool.submit(pwm_kernels.build)]
         if host.result() is None:
             raise RuntimeError("the host library did not build")
-        cuda.result()
-    log(f"[build] host + CUDA libraries in "
+        for lib in cuda:
+            lib.result()
+    log(f"[build] host + 2 CUDA libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    log("[build] nvcc: " + " | ".join(
-        line.strip() for line in _build.LOGS.get("kmers", "").splitlines()
-        if "registers" in line or "spill" in line))
+    for name in ("kmers", "pwm"):
+        log(f"[build] nvcc {name}: " + " | ".join(
+            line.strip() for line in _build.LOGS.get(name, "").splitlines()
+            if "registers" in line or "spill" in line))
 
 
 def phase_kernels(dev):
@@ -244,7 +291,75 @@ def phase_kernels(dev):
             "library_ms": None, "positions": n_pos})
         log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms by {bound_by})")
+    rows.append(pwm_kernel_row(dev, words))
     return rows
+
+
+def pwm_kernel_row(dev, words):
+    """pwm_scores_kernel against its plain version, bit for bit, at one
+    full batch for w = 1, 11, 17, 32 with -inf cells; then timed at w =
+    11 beside the plain version and conv1d over a one-hot encoding (the
+    library yardstick, on a finite matrix: one-hot x -inf gives NaN)."""
+    import torch.nn.functional as F
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    n_pos = (words.numel() - 2) * pk.WORD_BASES
+    for w in (1, MOTIF_WINDOW, 17, 32):
+        matrix = torch.from_numpy(np.ascontiguousarray(
+            pwm_matrix(SEED + w, w).matrix, np.float32)).to(dev)
+        got = pk.pwm_scores(words, matrix, w)
+        ref = pk.pwm_scores_plain(words, matrix, w)
+        if not torch.equal(got, ref):
+            finite = torch.isfinite(ref)
+            n_bad = int((got != ref).sum())
+            err = float((got[finite] - ref[finite]).abs().max())
+            raise AssertionError(f"pwm_scores_kernel differs from its plain "
+                                 f"version at {n_bad} positions (w={w}, "
+                                 f"max abs err {err})")
+        log(f"[kernels] w={w}: pwm scores equal bit for bit (tolerance: "
+            f"exact) at {n_pos} positions "
+            f"({int(torch.isneginf(ref).sum())} -inf)")
+
+    w = MOTIF_WINDOW
+    matrix = torch.from_numpy(np.ascontiguousarray(
+        pwm_matrix(SEED + w, w).matrix, np.float32)).to(dev)
+    lib = pk.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(n_pos, dtype=torch.float32, device=dev)
+
+    def kernel():
+        lib.pwm_scores_launch(words.data_ptr(), n_pos, matrix.data_ptr(), w,
+                              out.data_ptr(), stream)
+
+    codes = pk.unpack_codes(words)[: n_pos + w - 1]
+    onehot = F.one_hot(codes, 4).T.to(torch.float32).contiguous()[None]
+    finite = torch.from_numpy(np.random.default_rng(SEED).normal(
+        0, 1, (1, 4, w)).astype(np.float32)).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # full float32, as the kernel
+    try:
+        library_ms = median_ms(lambda: F.conv1d(onehot, finite))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del onehot, codes
+    ms = median_ms(kernel)
+    plain_ms = median_ms(lambda: pk.pwm_scores_plain(words, matrix, w))
+    # bytes: the words and the matrix read once, the scores written once;
+    # operations: ~10 integer ops for the window from three words, then
+    # per offset a shift, a mask, an index, a load and a float add
+    bound_ms, bound_by = bound(words.numel() * 4 + 16 * w + n_pos * 4,
+                               n_pos * (10 + 5 * w))
+    log(f"[kernels] pwm_scores_kernel w={w}: {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, conv1d {library_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by})")
+    return {"name": "pwm_scores_kernel", "route": "cuda",
+            "source": "bionumpy_tpu_torch/csrc/pwm.cu",
+            "replaces": "bionumpy_tpu/ops/pallas_pwm.py:32",
+            "tpu_kernel": "_pwm_block_kernel",
+            "launches": None, "max_abs_err": 0.0,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library": "conv1d one-hot",
+            "positions": n_pos, "window": w}
 
 
 def phase_job(dev, workdir: str):
@@ -297,11 +412,93 @@ def phase_job(dev, workdir: str):
         "gpu": gpu_line()}))
     log(f"[job] split: {bt.instrument.summary(total=wall)}")
     log("[job] stages: " + json.dumps(bt.instrument.report()))
-    profile_job(run)
+    profile_job(run, "job")
     return launches, counts, variants, lengths
 
 
-def profile_job(run) -> None:
+def phase_motif(dev, workdir: str, variants, lengths):
+    """The motif job on the card: the first MOTIF_MEMBERS members of the
+    headline job's file (cut with the port's member_offsets), a seeded
+    JASPAR-style PWM, and a threshold that keeps ~0.25% of windows.
+    Returns its kernel launches."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.io.pgzip import member_offsets
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    with open(os.path.join(workdir, "job.fq.gz"), "rb") as f:
+        data = f.read()
+    offsets = member_offsets(data)
+    if len(offsets) != N_VARIANTS * COPIES:
+        raise AssertionError(f"member_offsets found {len(offsets)} member "
+                             f"starts, the file has {N_VARIANTS * COPIES}")
+    path = os.path.join(workdir, "motif.fq.gz")
+    with open(path, "wb") as f:
+        f.write(data[: int(offsets[MOTIF_MEMBERS])])
+    del data
+    pwm = pwm_matrix(SEED, MOTIF_WINDOW)
+    matrix32 = pwm.matrix.astype(np.float32)
+    scores, inside = numpy_pwm_windows(variants[0], lengths, matrix32)
+    threshold = np.float32(np.percentile(scores[inside], MOTIF_PERCENTILE))
+    # the recount: each distinct variant once, expanded to its copies
+    n_var = MOTIF_MEMBERS // COPIES
+    exp_rows, exp_offs = [], []
+    for v in range(n_var):
+        rows, offs = numpy_pwm_matches(variants[v], lengths, matrix32,
+                                       threshold)
+        for c in range(COPIES):
+            exp_rows.append((v * COPIES + c) * N_READS + rows)
+            exp_offs.append(offs)
+    exp_rows, exp_offs = np.concatenate(exp_rows), np.concatenate(exp_offs)
+    order = np.lexsort((exp_offs, exp_rows))
+    exp_rows, exp_offs = exp_rows[order], exp_offs[order]
+    log(f"[motif] input {len(offsets[:MOTIF_MEMBERS])} members, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB gzip; w={MOTIF_WINDOW}, "
+        f"threshold {float(threshold)!r} "
+        f"({int(np.isneginf(matrix32).sum())} -inf cells), "
+        f"{len(exp_rows)} expected matches")
+
+    def run():
+        return bt.get_motif_matches_fastq(path, pwm, threshold, device=dev)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    log(f"[motif] warm-up run {time.perf_counter() - t0:.2f} s")
+    bt.instrument.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    rows, offs, stats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    n_batches = bt.instrument.report()["dispatch"]["calls"]
+    if not (np.array_equal(rows, exp_rows)
+            and np.array_equal(offs, exp_offs)):
+        raise AssertionError("the motif job's matches differ from the "
+                             "recount")
+    if stats["n_matches"] != len(exp_rows) or \
+            stats["n_reads"] != MOTIF_MEMBERS * N_READS or \
+            stats["n_bases"] != MOTIF_MEMBERS * int(lengths.sum()):
+        raise AssertionError(f"stats {stats} disagree with the recount")
+    if launches["pwm_scores_kernel"] < n_batches:
+        raise AssertionError(f"pwm_scores_kernel launched "
+                             f"{launches['pwm_scores_kernel']} times for "
+                             f"{n_batches} batches")
+    log(f"[motif] exact: {stats['n_reads']} reads, {stats['n_bases']} "
+        f"bases, {stats['n_matches']} matches, {n_batches} batches")
+    log("[motif] " + json.dumps({
+        "wall_s": wall, "mbases_per_s": stats["n_bases"] / wall / 1e6,
+        "n_matches": stats["n_matches"], "n_batches": n_batches,
+        "launches": launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "gpu": gpu_line()}))
+    log(f"[motif] split: {bt.instrument.summary(total=wall)}")
+    log("[motif] stages: " + json.dumps(bt.instrument.report()))
+    profile_job(run, "motif")
+    return launches
+
+
+def profile_job(run, tag: str) -> None:
     """One more run of the job under the CUDA profiler: the device's busy
     time (the sum of kernel and copy times on the card, one stream)
     against the run's wall time, and the kernels that take it."""
@@ -320,10 +517,11 @@ def profile_job(run) -> None:
             by_name[e.key] = by_name.get(e.key, 0.0) + us
     busy_us = sum(by_name.values())
     if not busy_us:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[profile {tag}] the profiler saw no device time: not "
+            f"measured")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log("[profile] " + json.dumps({
+    log(f"[profile {tag}] " + json.dumps({
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us,
         "top_ms": {name[:80]: us / 1e3 for name, us in top}}))
@@ -370,11 +568,13 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     try:
         job_launches, counts, variants, lengths = phase_job(dev, workdir)
+        motif_launches = phase_motif(dev, workdir, variants, lengths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     sum_launches = phase_checksum(dev, counts, variants, lengths)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
+    rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,11 @@ counts, stats = bt.count_kmers_fastq(sys.argv[1], 21, cap=1 << 12,
 assert stats["n_reads"] == 60 and int(counts.counts.sum()) == stats["n_kmers"]
 flat = np.frombuffer(b"\\0\\1\\2\\3" * 40, np.uint8)
 bt.kmer_checksum_streamed(flat, np.array([60, 100]), 21, device="cpu")
+pwm = bt.PWM.from_dict({"A": [5, 0, 1], "C": [1, 9, 2], "G": [2, 1, 8],
+                        "T": [2, 0, 1]})
+rows, offs, mstats = bt.get_motif_matches_fastq(sys.argv[1], pwm, 2.0,
+                                                device="cpu")
+assert mstats["n_reads"] == 60 and mstats["n_matches"] == len(rows) > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bionumpy_tpu"))
 print("LOADED", loaded)
@@ -75,6 +80,18 @@ def test_without_a_card_the_default_device_raises(tmp_path):
         count_kmers_fastq(str(path), 5)
 
 
+def test_without_a_card_the_motif_scan_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from bionumpy_tpu_torch import PWM, get_motif_matches_fastq
+    path = tmp_path / "reads.fq"
+    path.write_bytes(b"@r\nACGTACGTACGT\n+\nIIIIIIIIIIII\n")
+    pwm = PWM.from_dict({"A": [1, 2], "C": [3, 4], "G": [5, 6],
+                         "T": [7, 8]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_motif_matches_fastq(str(path), pwm, 0.0)
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     code = ("import torch\n"
@@ -90,3 +107,20 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     assert proc.returncode == 0, proc.stderr
     # (100 - 30) windows in row 0, (16384 - 100 - 30) in row 1
     assert proc.stdout.split() == [str(70 + 16254), "BUILD", "True"]
+
+
+def test_pwm_kernel_module_imports_without_nvcc(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    code = ("import torch\n"
+            "from bionumpy_tpu_torch.ops import pwm_kernels as pk\n"
+            "w = torch.full((1026,), 0x55555555, dtype=torch.int32)\n"
+            "m = torch.tensor([[0.0] * 5, [1.0] * 5, [0.0] * 5, [0.0] * 5])\n"
+            "print(float(pk.pwm_scores(w, m, 5).sum()))\n"
+            "try:\n"
+            "    pk.build()\n"
+            "except RuntimeError as err:\n"
+            "    print('BUILD', 'nvcc not found' in str(err))\n")
+    proc = _run(code, env=env)
+    assert proc.returncode == 0, proc.stderr
+    # every base is C (code 1): 5.0 at each of 16384 positions
+    assert proc.stdout.split() == [str(5.0 * 16384), "BUILD", "True"]

@@ -7,13 +7,15 @@ where only the port is installed:
         tests/test_torch_kernels_card.py
 
 The tests that need the card carry the `cuda` marker and skip without
-one.  Integer results: exact equality throughout."""
+one.  Integer keys and sums, and float32 PWM scores (accumulated in the
+same order by kernel and plain version): exact equality throughout."""
 import numpy as np
 import pytest
 import torch
 
 from bionumpy_tpu_torch.ops import kmer_kernels as kk
-from bionumpy_tpu_torch.ops.kmers import prepare_packed
+from bionumpy_tpu_torch.ops import pwm_kernels as pk
+from bionumpy_tpu_torch.ops.kmers import pack_codes_host, prepare_packed
 
 
 def _batch(seed, n_rows=3000, max_len=300):
@@ -103,3 +105,56 @@ def test_card_tensor_never_takes_the_plain_version(cuda):
         kk.kmer_keys(words.to(cuda).to(torch.int64), ends.to(cuda), 31, n)
     with pytest.raises(ValueError):
         kk.kmer_keys(words.to(cuda), ends, 31, n)  # ends on the host
+
+
+PWM_WIDTHS = [1, 4, 11, 16, 17, 31, 32]
+
+
+def _pwm_inputs(seed, window, n_words=3001):
+    """Seeded codes packed into n_words words (a position count that is
+    not a multiple of the 16384-position bucket) and a float32 (4, w)
+    matrix with -inf cells."""
+    rng = np.random.default_rng(seed)
+    n_positions = n_words * kk.WORD_BASES
+    codes = rng.integers(0, 4, n_positions - 5).astype(np.uint8)
+    words = pack_codes_host(codes, n_positions)
+    matrix = rng.normal(0, 1, (4, window)).astype(np.float32)
+    matrix[rng.integers(0, 4, 3), rng.integers(0, window, 3)] = -np.inf
+    return codes, torch.from_numpy(words.view(np.int32)), \
+        torch.from_numpy(matrix)
+
+
+@pytest.mark.parametrize("window", [1, 11, 32])
+def test_plain_pwm_scores_match_numpy_recount(window):
+    codes, words, matrix = _pwm_inputs(window, window)
+    m = matrix.numpy()
+    n = len(codes)
+    want = np.zeros(n, np.float32)
+    for j in range(window):
+        want[: n - j] += m[:, j][codes[j:]]
+    got = pk.pwm_scores(words, matrix, window).numpy()
+    assert len(got) == 3001 * kk.WORD_BASES
+    np.testing.assert_array_equal(got[: n - window + 1],
+                                  want[: n - window + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", PWM_WIDTHS)
+def test_pwm_kernel_matches_plain_version_on_card(cuda, window):
+    _, words, matrix = _pwm_inputs(window, window)
+    words, matrix = words.to(cuda), matrix.to(cuda)
+    before = pk.LAUNCHES["pwm_scores_kernel"]
+    got = pk.pwm_scores(words, matrix, window)
+    want = pk.pwm_scores_plain(words, matrix, window)
+    assert torch.isneginf(want).any()
+    assert torch.equal(got, want)
+    assert pk.LAUNCHES["pwm_scores_kernel"] == before + 1
+
+
+@pytest.mark.cuda
+def test_pwm_card_tensor_never_takes_the_plain_version(cuda):
+    _, words, matrix = _pwm_inputs(3, 11)
+    with pytest.raises(ValueError):
+        pk.pwm_scores(words.to(cuda).to(torch.int64), matrix.to(cuda), 11)
+    with pytest.raises(ValueError):
+        pk.pwm_scores(words.to(cuda), matrix, 11)  # matrix on the host
