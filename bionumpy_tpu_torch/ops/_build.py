@@ -17,6 +17,8 @@ import threading
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+# what kmers.cu and pwm.cu include: the packed stream's spans and grid
+SPAN_HEADER = os.path.join(CSRC, "packed_span.cuh")
 
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -31,17 +33,19 @@ _locks: dict = {}
 _locks_lock = threading.Lock()
 
 
-def build(name: str, sources: list, compiler: list) -> str:
+def build(name: str, sources: list, compiler: list,
+          headers: tuple = ()) -> str:
     """Path of `_build/lib<name>.so`, compiled from `sources` with the
-    `compiler` command unless it is newer than every source.  Raises
-    RuntimeError with the compiler's output when the build fails."""
+    `compiler` command unless it is newer than every source and every
+    header they include.  Raises RuntimeError with the compiler's output
+    when the build fails."""
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if os.path.exists(out) and all(
                 os.path.getmtime(s) <= os.path.getmtime(out)
-                for s in sources):
+                for s in [*sources, *headers]):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"

@@ -14,11 +14,18 @@ kmer_keys_kernel -- replaces the Pallas `_kmer_block_kernel`
     min(ends[-1], n_true), the sentinel 2^63-1 elsewhere (above every
     k <= 31 hash, so invalid slots sort last).  Bound by bytes: at one
     full batch of 2^25 positions it reads 8.4 MB of words and writes
-    268 MB of keys, ~83 us at 3.35 TB/s.  Design: one thread per
-    position, the window from three cached word loads and 64-bit shifts,
-    its row from a binary search over the row ends.  Its plain version
-    derives validity the way JAX does (row-end marks + cumsum), so the
-    two cross-check two methods.
+    268 MB of keys, ~83 us at 3.35 TB/s.  Its first design (one thread
+    per position, each with a binary search over the row ends) ran at
+    5.3x that bound on an NVIDIA H100 80GB HBM3 at 700 W, held back by
+    the searches' dependent loads.  Design now: a warp owns a span of
+    512 positions, finds the span's row once by a warp-wide 32-way
+    search, and each lane walks the row ends forward (galloping over
+    runs of empty or one-base rows); a lane writes two keys as one
+    coalesced evict-first 16-byte store, and a persistent grid walks the
+    spans.  On that card it takes 0.107 ms at k = 31, 1.3x its bound,
+    against 0.094 ms for fill_ over the same bytes (chip_smoke.py).  Its
+    plain version derives validity the way JAX does (row-end marks +
+    cumsum), so the two cross-check two methods.
 
 kmer_fullsum_kernel -- replaces the Pallas `_fullsum_kernel`
     (bionumpy_tpu/ops/pallas_kmers.py:63, via pallas_fullsum_packed): the
@@ -61,7 +68,8 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         path = _build.build("kmers", [_SOURCE],
-                            [_build.nvcc()] + _build.NVCC_FLAGS)
+                            [_build.nvcc()] + _build.NVCC_FLAGS,
+                            headers=(_build.SPAN_HEADER,))
         lib = ctypes.CDLL(path)
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.kmer_keys_launch.restype = ctypes.c_int

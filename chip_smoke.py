@@ -14,19 +14,24 @@ on failure:
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
   2. build     the host library (g++) and the two CUDA libraries (nvcc)
-               from the sources in the checkout, all compilers at once
+               from the sources in the checkout, all compilers at once;
+               prints each library's build time and each kernel's
+               registers, shared memory and spills (ptxas)
   3. kernels   kmer_keys_kernel, kmer_fullsum_kernel and
                pwm_scores_kernel against their plain versions at one
                full batch (2^25 positions; k=31 and k=15; w=1, 11, 17,
                32 with -inf cells), then timed with CUDA events (median
                of 15) beside a library call where one computes the same
+               and beside the store floor (fill_ over an output of the
+               same bytes); k=15 and w=32 are timed too
   4. job       count_kmers_fastq on the card, warm-up + timed run; the
                table must equal a numpy recount, and the kmer_keys
-               kernel must have launched once per batch
+               kernel must have launched once per batch; a profiled run
+               gives the device's busy time and idle share
   5. motif     get_motif_matches_fastq on the card over the first 512
                members, warm-up + timed run; the (read, offset) matches
                must equal a numpy recount, and the pwm_scores kernel
-               must have launched once per batch
+               must have launched once per batch; profiled as phase 4
   6. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
                with the table's sums
 
@@ -39,6 +44,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -198,25 +204,50 @@ def bound(n_bytes: int, n_ops: int):
 
 # ---- phases ---------------------------------------------------------------
 
+def ptxas_report(text: str) -> str:
+    """Registers, shared memory and spills of each kernel in nvcc's
+    -Xptxas -v output, one short entry per kernel (the template
+    instance pwm_scores_kernel<W> with its W)."""
+    entries = []
+    for block in text.split("Compiling entry function")[1:]:
+        name = re.match(r" '\S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if not (name and regs and spill):
+            continue
+        w = f"<{name.group(2)}>" if name.group(2) else ""
+        entries.append(f"{name.group(1)}{w} {regs.group(1)} regs "
+                       f"{smem.group(1) if smem else 0} B smem spill "
+                       f"{spill.group(1)}/{spill.group(2)} B")
+    return "; ".join(entries)
+
+
 def phase_build():
     from bionumpy_tpu_torch import native
     from bionumpy_tpu_torch.ops import _build, kmer_kernels
     from bionumpy_tpu_torch.ops import pwm_kernels
+
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         host = pool.submit(native._load)
-        cuda = [pool.submit(kmer_kernels.build),
-                pool.submit(pwm_kernels.build)]
+        cuda = {"kmers": pool.submit(timed, kmer_kernels.build),
+                "pwm": pool.submit(timed, pwm_kernels.build)}
         if host.result() is None:
             raise RuntimeError("the host library did not build")
-        for lib in cuda:
-            lib.result()
+        seconds = {name: lib.result() for name, lib in cuda.items()}
     log(f"[build] host + 2 CUDA libraries in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (nvcc kmers "
+        f"{seconds['kmers']:.1f} s, pwm {seconds['pwm']:.1f} s)")
     for name in ("kmers", "pwm"):
-        log(f"[build] nvcc {name}: " + " | ".join(
-            line.strip() for line in _build.LOGS.get(name, "").splitlines()
-            if "registers" in line or "spill" in line))
+        log(f"[build] ptxas {name}: "
+            f"{ptxas_report(_build.LOGS.get(name, '')) or 'library current'}")
 
 
 def phase_kernels(dev):
@@ -256,9 +287,9 @@ def phase_kernels(dev):
     keys = torch.empty(n_pos, dtype=torch.int64, device=dev)
     sums = torch.zeros(2, dtype=torch.int32, device=dev)
 
-    def keys_kernel():
+    def keys_kernel(k=K):
         lib.kmer_keys_launch(words.data_ptr(), ends.data_ptr(),
-                             ends.numel(), n_pos, n, K, keys.data_ptr(),
+                             ends.numel(), n_pos, n, k, keys.data_ptr(),
                              stream)
 
     def sum_kernel():
@@ -266,19 +297,25 @@ def phase_kernels(dev):
                                 sums.data_ptr(), stream)
 
     word_bytes = words.numel() * 4
+    keys_bytes = word_bytes + ends.numel() * 4 + n_pos * 8
+    # ~12 integer ops a position: the window from three words (shifts,
+    # or, mask) and one compare with its row end
+    keys_bound, keys_by = bound(keys_bytes, n_pos * 12)
+    k15_ms = median_ms(lambda: keys_kernel(15))
+    log(f"[kernels] kmer_keys_kernel k=15: {k15_ms:.4f} ms (bound "
+        f"{keys_bound:.4f} ms by {keys_by})")
     rows = []
-    for name, line, kernel, plain, n_bytes, n_ops in (
+    for name, line, kernel, plain, n_bytes, floor in (
             ("kmer_keys_kernel", 32, keys_kernel,
-             lambda: kk.kmer_keys_plain(words, ends, K, n),
-             word_bytes + ends.numel() * 4 + n_pos * 8,
-             # ~12 integer ops a position: the window from three words
-             # (shifts, or, mask) and one compare with its row end
-             n_pos * 12),
+             lambda: kk.kmer_keys_plain(words, ends, K, n), keys_bytes,
+             # the store floor: fill_ over an output of the keys' bytes
+             lambda: keys.fill_(SENTINEL)),
             ("kmer_fullsum_kernel", 63, sum_kernel,
-             lambda: kk.kmer_fullsum_plain(words, K),
-             word_bytes + 8, n_pos * 12)):
+             lambda: kk.kmer_fullsum_plain(words, K), word_bytes + 8,
+             None)):
         ms, plain_ms = median_ms(kernel), median_ms(plain)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+        floor_ms = median_ms(floor) if floor else None
+        bound_ms, bound_by = bound(n_bytes, n_pos * 12)
         rows.append({
             "name": name, "route": "cuda",
             "source": "bionumpy_tpu_torch/csrc/kmers.cu",
@@ -288,9 +325,11 @@ def phase_kernels(dev):
             "launches": None, "max_abs_err": errs[name],
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "positions": n_pos})
+            "library_ms": None, "store_floor_ms": floor_ms,
+            "positions": n_pos})
         log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by})")
+            f"bound {bound_ms:.4f} ms by {bound_by}"
+            + (f", store floor {floor_ms:.4f} ms)" if floor else ")"))
     rows.append(pwm_kernel_row(dev, words))
     return rows
 
@@ -319,17 +358,31 @@ def pwm_kernel_row(dev, words):
             f"exact) at {n_pos} positions "
             f"({int(torch.isneginf(ref).sum())} -inf)")
 
-    w = MOTIF_WINDOW
-    matrix = torch.from_numpy(np.ascontiguousarray(
-        pwm_matrix(SEED + w, w).matrix, np.float32)).to(dev)
     lib = pk.build()
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty(n_pos, dtype=torch.float32, device=dev)
 
-    def kernel():
-        lib.pwm_scores_launch(words.data_ptr(), n_pos, matrix.data_ptr(), w,
-                              out.data_ptr(), stream)
+    def pwm_bound(w):
+        # bytes: the words and the matrix read once, the scores written
+        # once; operations: ~10 integer ops for the window from three
+        # words, then per offset a shift, a mask, an index, a load and a
+        # float add
+        return bound(words.numel() * 4 + 16 * w + n_pos * 4,
+                     n_pos * (10 + 5 * w))
 
+    def launcher(w):
+        matrix = torch.from_numpy(np.ascontiguousarray(
+            pwm_matrix(SEED + w, w).matrix, np.float32)).to(dev)
+        return matrix, lambda: lib.pwm_scores_launch(
+            words.data_ptr(), n_pos, matrix.data_ptr(), w, out.data_ptr(),
+            stream)
+
+    w32_ms = median_ms(launcher(32)[1])
+    w32_bound, w32_by = pwm_bound(32)
+    log(f"[kernels] pwm_scores_kernel w=32: {w32_ms:.4f} ms (bound "
+        f"{w32_bound:.4f} ms by {w32_by})")
+    w = MOTIF_WINDOW
+    matrix, kernel = launcher(w)
     codes = pk.unpack_codes(words)[: n_pos + w - 1]
     onehot = F.one_hot(codes, 4).T.to(torch.float32).contiguous()[None]
     finite = torch.from_numpy(np.random.default_rng(SEED).normal(
@@ -343,14 +396,12 @@ def pwm_kernel_row(dev, words):
     del onehot, codes
     ms = median_ms(kernel)
     plain_ms = median_ms(lambda: pk.pwm_scores_plain(words, matrix, w))
-    # bytes: the words and the matrix read once, the scores written once;
-    # operations: ~10 integer ops for the window from three words, then
-    # per offset a shift, a mask, an index, a load and a float add
-    bound_ms, bound_by = bound(words.numel() * 4 + 16 * w + n_pos * 4,
-                               n_pos * (10 + 5 * w))
+    # the store floor: fill_ over an output of the scores' bytes
+    floor_ms = median_ms(lambda: out.fill_(0.0))
+    bound_ms, bound_by = pwm_bound(w)
     log(f"[kernels] pwm_scores_kernel w={w}: {ms:.4f} ms (plain "
         f"{plain_ms:.3f} ms, conv1d {library_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by})")
+        f"{bound_ms:.4f} ms by {bound_by}, store floor {floor_ms:.4f} ms)")
     return {"name": "pwm_scores_kernel", "route": "cuda",
             "source": "bionumpy_tpu_torch/csrc/pwm.cu",
             "replaces": "bionumpy_tpu/ops/pallas_pwm.py:32",
@@ -359,7 +410,7 @@ def pwm_kernel_row(dev, words):
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library": "conv1d one-hot",
-            "positions": n_pos, "window": w}
+            "store_floor_ms": floor_ms, "positions": n_pos, "window": w}
 
 
 def phase_job(dev, workdir: str):
@@ -521,10 +572,14 @@ def profile_job(run, tag: str) -> None:
             f"measured")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ours = ("kmer_keys_kernel", "kmer_fullsum_kernel", "pwm_scores_kernel")
     log(f"[profile {tag}] " + json.dumps({
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us,
-        "top_ms": {name[:80]: us / 1e3 for name, us in top}}))
+        "top_ms": {name[:80]: us / 1e3 for name, us in top},
+        "port_kernels_ms": {kernel: sum(
+            us for name, us in by_name.items() if kernel in name) / 1e3
+            for kernel in ours}}))
 
 
 def phase_checksum(dev, counts, variants, lengths):

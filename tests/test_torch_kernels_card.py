@@ -30,6 +30,61 @@ def _batch(seed, n_rows=3000, max_len=300):
         torch.from_numpy(ends), n
 
 
+SPAN = 512  # positions a warp of the kernels owns (csrc/packed_span.cuh)
+EDGE_LAYOUTS = ["long_rows", "empty_rows", "unit_rows"]
+
+
+def _edge_batch(layout, seed):
+    """Rows that stress the kernels' span walk: rows far longer than a
+    span, thousands of consecutive empty rows, or long stretches of
+    one-base rows; packed into a position count that is not a multiple
+    of the span, the row axis padded as the pipeline pads it."""
+    rng = np.random.default_rng(seed)
+
+    def normal(n):
+        return rng.integers(0, 300, n)
+
+    ones, zeros = np.ones, np.zeros
+    parts = {
+        "long_rows": [normal(20), [20_000], normal(5),
+                      [70_001, 3, SPAN, SPAN + 1], normal(20)],
+        "empty_rows": [zeros(5_000), normal(30), zeros(6_000), normal(30),
+                       zeros(300)],
+        "unit_rows": [normal(10), ones(3_000), rng.integers(1, 40, 500),
+                      ones(1_500), normal(10)],
+    }[layout]
+    lengths = np.concatenate(parts).astype(np.int64)
+    codes = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    n_positions = kk.WORD_BASES * (len(codes) // kk.WORD_BASES + 7)
+    if n_positions % SPAN == 0:
+        n_positions += kk.WORD_BASES
+    words = pack_codes_host(codes, n_positions)
+    ends = np.cumsum(lengths).astype(np.int32)
+    ends = np.concatenate([ends, np.full(1000, ends[-1], np.int32)])
+    return codes, lengths, torch.from_numpy(words.view(np.int32)), \
+        torch.from_numpy(ends), len(codes)
+
+
+def _kmer_case(k, layout, n_rows=3000):
+    """(codes, lengths, words, ends, n) of a seeded batch: the random
+    layout of _batch, or one of EDGE_LAYOUTS."""
+    if layout == "random":
+        return _batch(k, n_rows=n_rows)
+    return _edge_batch(layout, k)
+
+
+def _n_trues(n):
+    """The data's end, just before it, inside a span, and nothing."""
+    return (n, n - 77, n // 2 + 37, 0)
+
+
+# the random layout keeps its ids (the k alone)
+KMER_CASES = [pytest.param(k, "random", id=str(k))
+              for k in (1, 15, 16, 17, 31)] + \
+    [pytest.param(k, layout, id=f"{layout}-{k}")
+     for layout in EDGE_LAYOUTS for k in (1, 16, 31)]
+
+
 def _numpy_keys(codes, lengths, n_positions, k, n_true):
     """Window hashes sum(code_j * 4^j) where the window fits its row and
     starts below n_true; the sentinel elsewhere."""
@@ -45,11 +100,11 @@ def _numpy_keys(codes, lengths, n_positions, k, n_true):
     return keys
 
 
-@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
-def test_plain_keys_match_numpy_recount(k):
-    codes, lengths, words, ends, n = _batch(k, n_rows=400)
+@pytest.mark.parametrize("k, layout", KMER_CASES)
+def test_plain_keys_match_numpy_recount(k, layout):
+    codes, lengths, words, ends, n = _kmer_case(k, layout, n_rows=400)
     n_positions = (words.numel() - 2) * kk.WORD_BASES
-    for n_true in (n, n - 77):
+    for n_true in _n_trues(n):
         got = kk.kmer_keys(words, ends, k, n_true).numpy()
         np.testing.assert_array_equal(
             got, _numpy_keys(codes, lengths, n_positions, k, n_true))
@@ -78,22 +133,50 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
-def test_kernels_match_plain_versions_on_card(cuda, k):
-    _, _, words, ends, n = _batch(k)
+@pytest.mark.parametrize("k, layout", KMER_CASES)
+def test_kernels_match_plain_versions_on_card(cuda, k, layout):
+    _, _, words, ends, n = _kmer_case(k, layout)
     words, ends = words.to(cuda), ends.to(cuda)
     before = dict(kk.LAUNCHES)
-    for n_true in (n, n - 123, 0):
+    for n_true in _n_trues(n):
         got = kk.kmer_keys(words, ends, k, n_true)
-        torch.testing.assert_close(
-            got, kk.kmer_keys_plain(words, ends, k, n_true), rtol=0, atol=0)
+        assert torch.equal(got, kk.kmer_keys_plain(words, ends, k, n_true))
     torch.testing.assert_close(kk.kmer_fullsum(words, k),
                                kk.kmer_fullsum_plain(words, k),
                                rtol=0, atol=0)
     assert kk.LAUNCHES["kmer_keys_kernel"] == \
-        before["kmer_keys_kernel"] + 3
+        before["kmer_keys_kernel"] + len(_n_trues(n))
     assert kk.LAUNCHES["kmer_fullsum_kernel"] == \
         before["kmer_fullsum_kernel"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_positions", [1, 63, 511, 1001, 4098])
+def test_kernels_write_exactly_their_positions_on_card(cuda, n_positions):
+    """Through the C entry points, counts the wrappers never pass (not a
+    multiple of a word, of a lane's positions or of a span): each kernel
+    writes positions below n_positions, equal to its plain version, and
+    nothing past them."""
+    _, _, words, ends, n = _batch(5, n_rows=30)
+    words, ends = words.to(cuda), ends.to(cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    keys = torch.full((n_positions + 64,), -1, dtype=torch.int64,
+                      device=cuda)
+    assert kk.build().kmer_keys_launch(
+        words.data_ptr(), ends.data_ptr(), ends.numel(), n_positions, n,
+        31, keys.data_ptr(), stream) == 0
+    want = kk.kmer_keys_plain(words, ends, 31, n)[:n_positions]
+    assert torch.equal(keys[:n_positions], want)
+    assert (keys[n_positions:] == -1).all()
+    matrix = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (4, 11)).astype(np.float32)).to(cuda)
+    out = torch.full((n_positions + 64,), np.nan, device=cuda)
+    assert pk.build().pwm_scores_launch(
+        words.data_ptr(), n_positions, matrix.data_ptr(), 11,
+        out.data_ptr(), stream) == 0
+    want = pk.pwm_scores_plain(words, matrix, 11)[:n_positions]
+    assert torch.equal(out[:n_positions], want)
+    assert torch.isnan(out[n_positions:]).all()
 
 
 @pytest.mark.cuda
@@ -107,7 +190,7 @@ def test_card_tensor_never_takes_the_plain_version(cuda):
         kk.kmer_keys(words.to(cuda), ends, 31, n)  # ends on the host
 
 
-PWM_WIDTHS = [1, 4, 11, 16, 17, 31, 32]
+PWM_WIDTHS = list(range(1, pk.MAX_WINDOW + 1))  # each its own kernel
 
 
 def _pwm_inputs(seed, window, n_words=3001):
