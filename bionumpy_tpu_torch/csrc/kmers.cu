@@ -28,10 +28,22 @@
 //
 // kmer_fullsum_kernel replaces the Pallas _fullsum_kernel
 // (bionumpy_tpu/ops/pallas_kmers.py:63): sums mod 2^32 of the low and the
-// high 32 bits of every window hash, validity ignored.  It writes nothing
-// and reads 1/4 byte per position, so its bound is the dozen integer
-// operations a position takes.  Design: one thread per position in a
-// grid-stride loop, the three words through the read-only cache (__ldg).
+// high 32 bits of every window hash, validity ignored.  It writes 8 bytes
+// and reads 1/4 byte per position (8.4 MB at 2^25 positions, 2.5 us at
+// 3.35 TB/s).  Summed over the positions, every code of the stream counts
+// with one weight fixed by k, except the k-1 codes at either end, so the
+// kernel sums the codes (two popcounts per word, two 16-byte loads in
+// flight a lane) and one warp adds the edge codes with their own weights;
+// a block reduces by shuffle and shared memory and adds one atomic pair.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) a launch takes
+// 3.2 us of device time at 2^25 positions for k = 31 and k = 15, 1.3x its
+// byte bound, and 2.0 us over a 2^22-position checksum chunk, where the
+// launch and the reduction's tail are what is left; CUDA events around
+// back-to-back launches read 4-9 us, the host's ctypes launch rate.  Its
+// first design, one thread per position (28 SASS instructions each:
+// three word loads, a 64-bit shift, a mask) and one atomic pair per warp,
+// took 53-54 us of device time.  A window-by-window design (a lane per
+// word, 16 funnel shifts a limb) was slower, held by integer issue.
 //
 // There is no de-interleaved (offset, word) layout: that exists for the
 // TPU's vector unit only.  Every entry point launches on the caller's
@@ -45,24 +57,9 @@ namespace {
 
 using packed::kSpan;
 using packed::kThreads;
+using packed::kWordBases;
 
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
-constexpr int kMaxSumBlocks = 132 * 8;  // SMs x resident blocks per SM
-
-__device__ __forceinline__ unsigned long long window_at(
-        const uint32_t* __restrict__ words, long long p,
-        unsigned long long mask) {
-    const long long w = p >> 4;
-    const unsigned bit = (unsigned)(p & 15) * 2u;
-    const unsigned long long low =
-        (unsigned long long)__ldg(words + w) |
-        ((unsigned long long)__ldg(words + w + 1) << 32);
-    unsigned long long v = low >> bit;
-    // a shift by 64 is undefined: the third word joins only when the
-    // window starts inside the first one (JAX's where(bit > 0, ...))
-    if (bit) v |= (unsigned long long)__ldg(words + w + 2) << (64 - bit);
-    return v & mask;
-}
 
 // The masked hash of the window starting `bit` (0..30, even) bits into
 // word a of the words a, b, c: its low and high 32 bits are funnel shifts,
@@ -185,26 +182,140 @@ kmer_keys_kernel(const uint32_t* __restrict__ words,
     }
 }
 
-__global__ void kmer_fullsum_kernel(const uint32_t* __restrict__ words,
-                                    long long n_positions,
-                                    unsigned long long mask,
-                                    unsigned int* __restrict__ out) {
-    unsigned int lo = 0, hi = 0;  // wrapping adds: exact mod 2^32
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         p < n_positions; p += stride) {
-        const unsigned long long v = window_at(words, p, mask);
-        lo += (unsigned int)v;
-        hi += (unsigned int)(v >> 32);
-    }
+// Adds lo and hi of every thread of the block and then, from thread 0,
+// into out[0] and out[1]: one atomic pair per block.  Every thread of the
+// block must call it.
+__device__ __forceinline__ void block_add(unsigned lo, unsigned hi,
+                                          unsigned* __restrict__ out) {
+    __shared__ unsigned part[2][packed::kWarpsPerBlock];
     for (int off = 16; off > 0; off >>= 1) {
         lo += __shfl_down_sync(0xffffffffu, lo, off);
         hi += __shfl_down_sync(0xffffffffu, hi, off);
     }
-    if ((threadIdx.x & 31) == 0) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) {
+        part[0][warp] = lo;
+        part[1][warp] = hi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        lo = hi = 0;
+#pragma unroll
+        for (int w = 0; w < packed::kWarpsPerBlock; ++w) {
+            lo += part[0][w];
+            hi += part[1][w];
+        }
         atomicAdd(out, lo);
         atomicAdd(out + 1, hi);
     }
+}
+
+// The sum of the 16 base codes (2-bit digits) of a word.
+__device__ __forceinline__ unsigned digit_sum(uint32_t x) {
+    return __popc(x) + __popc(x & 0xAAAAAAAAu);
+}
+
+__device__ __forceinline__ unsigned digit_sum(const uint4& x) {
+    return digit_sum(x.x) + digit_sum(x.y) + digit_sum(x.z) + digit_sum(x.w);
+}
+
+// 4^0 + ... + 4^(e-1): the weight of a code that every window of a limb
+// of e bases covers once at each of its offsets.
+__device__ __forceinline__ unsigned full_weight(int e) {
+    return (unsigned)(((1ull << (2 * e)) - 1) / 3);
+}
+
+// The weight of code i in the sum over positions 0..n-1 of a limb that
+// holds the window's bases o..o+e-1: sum of 4^(j-o) over the j in
+// [o, o+e) with 0 <= i-j < n.
+__device__ __forceinline__ unsigned edge_weight(long long i, long long n,
+                                                int o, int e) {
+    const long long first = max((long long)o, i - n + 1);
+    const long long last = min((long long)(o + e - 1), i);
+    if (first > last) return 0u;
+    return (unsigned)(((1ull << (2 * (last - o + 1))) -
+                       (1ull << (2 * (first - o)))) / 3);
+}
+
+// 16-byte loads a lane of kmer_fullsum_kernel has in flight at once.
+constexpr int kSumLoads = 2;
+
+// The sums of the low and high limbs by their closed form.  The low limb
+// of window p is sum(code_{p+j} 4^j, j < e) with e = min(k, 16), so
+// summed over the positions p < n every code i in [k-1, n) counts with
+// the same weight G = (4^e - 1)/3; the high limb (bases 16..k-1) gives
+// the codes in [k-1, n+16) the weight H = (4^(k-16) - 1)/3.  So
+//   lo = G * D + edges,   hi = H * D + edges,
+// with D the sum of the codes 0..n-1 (popcounts of the words) and the
+// edges the codes in [0, k-1) and [n, n+k-1), each times its own weight
+// less the full one it was counted with in D: at most 60 codes, one lane
+// each in the first warp.  Exact mod 2^32 for every k in 1..31.
+__global__ void __launch_bounds__(kThreads)
+kmer_fullsum_kernel(const uint32_t* __restrict__ words,
+                    long long n_positions, int k,
+                    unsigned* __restrict__ out) {
+    // the whole words as 16-byte loads from the first aligned one (the
+    // body); the words before it, the whole words after it and the
+    // partial word are loose words, one a lane of the first warp
+    const long long n_whole = n_positions >> 4;
+    const long long head = min(
+        (long long)(((16u - ((uintptr_t)words & 15u)) & 15u) >> 2), n_whole);
+    const uint4* body = reinterpret_cast<const uint4*>(words + head);
+    const long long n_vec = (n_whole - head) >> 2;
+    const long long tail = head + 4 * n_vec;
+    const int rest = (int)(n_positions & 15);
+    const long long edge = k - 1;
+    // the first warp of block 0 loads its loose word and the words of its
+    // edge codes (lane l: codes l and max(n, k-1) + l) before its share
+    // of the body, so that all its loads are in flight together
+    const bool edge_warp = blockIdx.x == 0 && threadIdx.x < 32;
+    const int lane = threadIdx.x & 31;
+    uint32_t loose = 0;
+    const long long at[2] = {lane, max(n_positions, edge) + lane};
+    const long long stops[2] = {edge, n_positions + edge};
+    uint32_t at_word[2] = {0u, 0u};
+    if (edge_warp) {
+        const long long q = lane < head ? lane : tail + (lane - head);
+        if (q < n_whole) {
+            loose = __ldg(words + q);
+        } else if (q == n_whole && rest) {
+            loose = __ldg(words + q) & ((1u << (2 * rest)) - 1u);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+            if (at[r] < stops[r]) at_word[r] = __ldg(words + (at[r] >> 4));
+    }
+    unsigned digits = 0;
+    const long long stride = (long long)gridDim.x * kThreads;
+    long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+    for (; v + (kSumLoads - 1) * stride < n_vec; v += kSumLoads * stride) {
+        uint4 x[kSumLoads];
+#pragma unroll
+        for (int u = 0; u < kSumLoads; ++u)
+            x[u] = __ldg(body + v + u * stride);
+#pragma unroll
+        for (int u = 0; u < kSumLoads; ++u) digits += digit_sum(x[u]);
+    }
+    for (; v < n_vec; v += stride) digits += digit_sum(__ldg(body + v));
+    const int e_lo = min(k, 16), e_hi = max(k - 16, 0);
+    unsigned lo = 0, hi = 0;
+    if (edge_warp) {
+        digits += digit_sum(loose);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const long long i = at[r];
+            if (i >= stops[r]) continue;
+            const unsigned c = (at_word[r] >> (2 * (unsigned)(i & 15))) & 3u;
+            const bool inside = i < n_positions;
+            lo += c * (edge_weight(i, n_positions, 0, e_lo) -
+                       (inside ? full_weight(e_lo) : 0u));
+            hi += c * (edge_weight(i, n_positions, 16, e_hi) -
+                       (inside ? full_weight(e_hi) : 0u));
+        }
+    }
+    lo += full_weight(e_lo) * digits;
+    hi += full_weight(e_hi) * digits;
+    block_add(lo, hi, out);
 }
 
 unsigned long long hash_mask(int k) {
@@ -231,17 +342,18 @@ int kmer_keys_launch(const void* words, const void* ends, int n_rows,
     return (int)cudaGetLastError();
 }
 
-// out[0] += sum of low halves, out[1] += sum of high halves (mod 2^32);
-// the caller zeroes out first.
+// out[0] += sum of low halves, out[1] += sum of high halves (mod 2^32)
+// over positions 0..n_positions-1; words holds (n_positions+15)/16 + 2
+// words.  The caller zeroes out first: the kernel only adds to it.
 int kmer_fullsum_launch(const void* words, long long n_positions, int k,
                         void* out, void* stream) {
     if (n_positions > 0) {
-        long long blocks = (n_positions + kThreads - 1) / kThreads;
-        if (blocks > kMaxSumBlocks) blocks = kMaxSumBlocks;
-        kmer_fullsum_kernel<<<(unsigned)blocks, kThreads, 0,
-                              (cudaStream_t)stream>>>(
-            (const uint32_t*)words, n_positions, hash_mask(k),
-            (unsigned int*)out);
+        // enough blocks for kSumLoads 16-byte loads a lane
+        const long long per_block = 64LL * kThreads * kSumLoads;
+        kmer_fullsum_kernel<<<packed::persistent_blocks<kmer_fullsum_kernel>(
+                                  (n_positions + per_block - 1) / per_block),
+                              kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)words, n_positions, k, (unsigned*)out);
     }
     return (int)cudaGetLastError();
 }

@@ -84,14 +84,20 @@ int resident_blocks() {
     return sms * per_sm;
 }
 
-// Grid of a persistent launch over n_positions: at most one warp a span,
-// at most what stays resident.
+// Grid of a persistent launch that has work for `wanted` blocks: at most
+// what stays resident.
+template <auto Kernel>
+unsigned persistent_blocks(long long wanted) {
+    const long long resident = resident_blocks<Kernel>();
+    return (unsigned)(wanted < resident ? wanted : resident);
+}
+
+// Grid of a persistent launch over n_positions: at most one warp a span.
 template <auto Kernel>
 unsigned persistent_grid(long long n_positions) {
     const long long spans = (n_positions + kSpan - 1) / kSpan;
-    const long long wanted = (spans + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    const long long resident = resident_blocks<Kernel>();
-    return (unsigned)(wanted < resident ? wanted : resident);
+    return persistent_blocks<Kernel>((spans + kWarpsPerBlock - 1) /
+                                     kWarpsPerBlock);
 }
 
 }  // namespace packed

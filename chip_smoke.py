@@ -20,10 +20,15 @@ on failure:
   3. kernels   kmer_keys_kernel, kmer_fullsum_kernel and
                pwm_scores_kernel against their plain versions at one
                full batch (2^25 positions; k=31 and k=15; w=1, 11, 17,
-               32 with -inf cells), then timed with CUDA events (median
-               of 15) beside a library call where one computes the same
-               and beside the store floor (fill_ over an output of the
-               same bytes); k=15 and w=32 are timed too
+               32 with -inf cells), then timed with CUDA events around
+               back-to-back calls (median of 15 timings; ms) and by the
+               profiler (each launch's own duration; device_ms), beside
+               a library call where one computes the same and beside
+               the store floor (fill_ over an output of the same
+               bytes); k=15 and w=32 are timed too, and
+               kmer_fullsum_kernel also over one 2^22-position checksum
+               chunk, beside a read floor (torch.sum over the words),
+               with its bounds by bytes and by operations side by side
   4. job       count_kmers_fastq on the card, warm-up + timed run; the
                table must equal a numpy recount, and the kmer_keys
                kernel must have launched once per batch; a profiled run
@@ -33,7 +38,8 @@ on failure:
                must equal a numpy recount, and the pwm_scores kernel
                must have launched once per batch; profiled as phase 4
   6. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
-               with the table's sums
+               with the table's sums; prints its wall and, from one more
+               profiled run, the device time of its fullsum launches
 
 It prints a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}.  Without a card it exits non-zero and
@@ -63,6 +69,8 @@ N_VARIANTS, COPIES, N_READS = 64, 32, 1000
 MUTATION_RATE = 0.01
 SEED = 7
 TIMING_RUNS = 15
+LOOP_MS = 5.0                 # CUDA-event timing: calls enough to fill this
+MAX_LOOP_CALLS = 200
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # peak rate of the integer ALU work: the data sheet lists none, so the
 # 67 TFLOP/s non-tensor float32 peak stands in for 32-bit integer ops
@@ -148,20 +156,55 @@ def expected_table(variants, lengths, copies: int, k: int):
 
 # ---- timing ---------------------------------------------------------------
 
+def events_ms(fn, calls: int) -> float:
+    """ms by CUDA events around `calls` back-to-back calls of fn."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """The time of one call of fn in ms: the median of `runs` timings by
+    CUDA events, each around enough back-to-back calls to fill about
+    LOOP_MS (at most MAX_LOOP_CALLS), divided by their count.  Warm:
+    inputs that fit the 50 MB L2 stay there between calls."""
     fn()
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    one = max(events_ms(fn, 1), 1e-3)
+    calls = int(min(MAX_LOOP_CALLS, max(1, LOOP_MS // one)))
+    return float(np.median([events_ms(fn, calls) / calls
+                            for _ in range(runs)]))
+
+
+def kernel_device_ms(fn, kernel: str, runs: int = TIMING_RUNS) -> float:
+    """Mean device time in ms of one launch of `kernel` over `runs` calls
+    of fn under the CUDA profiler: the kernel's own duration, without the
+    host's launch gaps that CUDA events around a call of a few
+    microseconds also hold.  The mean is over the launches the profiler
+    recorded, which may miss one at the window's edge."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if re.search(rf"\b{kernel}\b", e.key):
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            n += e.count
+    if not 0 < n <= runs or not us:
+        raise AssertionError(f"the profiler saw {n} launches of {kernel} "
+                             f"in {runs} calls")
+    return us / n / 1e3
 
 
 def pwm_matrix(seed: int, window: int):
@@ -292,8 +335,9 @@ def phase_kernels(dev):
                              ends.numel(), n_pos, n, k, keys.data_ptr(),
                              stream)
 
-    def sum_kernel():
-        lib.kmer_fullsum_launch(words.data_ptr(), n_pos, K,
+    def sum_kernel(k=K, n_words=words.numel()):
+        lib.kmer_fullsum_launch(words.data_ptr(),
+                                (n_words - 2) * kk.WORD_BASES, k,
                                 sums.data_ptr(), stream)
 
     word_bytes = words.numel() * 4
@@ -304,6 +348,7 @@ def phase_kernels(dev):
     k15_ms = median_ms(lambda: keys_kernel(15))
     log(f"[kernels] kmer_keys_kernel k=15: {k15_ms:.4f} ms (bound "
         f"{keys_bound:.4f} ms by {keys_by})")
+    sum_row = fullsum_times(words, sum_kernel)
     rows = []
     for name, line, kernel, plain, n_bytes, floor in (
             ("kmer_keys_kernel", 32, keys_kernel,
@@ -316,22 +361,67 @@ def phase_kernels(dev):
         ms, plain_ms = median_ms(kernel), median_ms(plain)
         floor_ms = median_ms(floor) if floor else None
         bound_ms, bound_by = bound(n_bytes, n_pos * 12)
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "bionumpy_tpu_torch/csrc/kmers.cu",
             "replaces": f"bionumpy_tpu/ops/pallas_kmers.py:{line}",
             "tpu_kernel": "_kmer_block_kernel" if line == 32
             else "_fullsum_kernel",
             "launches": None, "max_abs_err": errs[name],
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": ms,
+            "device_ms": kernel_device_ms(kernel, name),
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "store_floor_ms": floor_ms,
-            "positions": n_pos})
-        log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by}"
+            "positions": n_pos}
+        if name == "kmer_fullsum_kernel":
+            row.update(sum_row)
+        rows.append(row)
+        log(f"[kernels] {name}: {row['ms']:.5f} ms (device "
+            f"{row['device_ms']:.5f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
             + (f", store floor {floor_ms:.4f} ms)" if floor else ")"))
     rows.append(pwm_kernel_row(dev, words))
     return rows
+
+
+def fullsum_times(words, sum_kernel) -> dict:
+    """kmer_fullsum_kernel at k=15 over the full batch and at k=31 over
+    one checksum chunk (2^22 positions), by CUDA events and by the
+    profiler, beside a read floor (torch.sum over the same words); its
+    bounds by bytes and by operations side by side.  Returns the kernel
+    row's extra keys."""
+    n_pos = (words.numel() - 2) * 16
+    chunk_words = (1 << 22) // 16 + 2
+    name = "kmer_fullsum_kernel"
+    k15, chunk = (lambda: sum_kernel(15),
+                  lambda: sum_kernel(n_words=chunk_words))
+    times = {
+        "ms_k15": median_ms(k15),
+        "device_ms_k15": kernel_device_ms(k15, name),
+        "ms_chunk": median_ms(chunk),
+        "device_ms_chunk": kernel_device_ms(chunk, name),
+        "read_floor_ms": median_ms(lambda: words.sum()),
+    }
+    n_bytes = words.numel() * 4 + 8
+    bytes_ms = n_bytes / MEM_BYTES_PER_S * 1e3
+    # the closed form: per word two popcounts, a mask and two adds
+    ops_ms = n_pos // 16 * 5 / INT_OPS_PER_S * 1e3
+    # summing window by window: ~12 integer ops a position
+    window_ops_ms = n_pos * 12 / INT_OPS_PER_S * 1e3
+    chunk_bytes_ms = chunk_words * 4 / MEM_BYTES_PER_S * 1e3
+    log(f"[kernels] kmer_fullsum_kernel k=15: {times['ms_k15']:.5f} ms "
+        f"(device {times['device_ms_k15']:.5f} ms); 2^22 positions: "
+        f"{times['ms_chunk']:.5f} ms (device {times['device_ms_chunk']:.5f} "
+        f"ms, bound {chunk_bytes_ms:.5f} ms by bytes); read floor "
+        f"(torch.sum) {times['read_floor_ms']:.5f} ms.  Bounds: bytes "
+        f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms (window by window "
+        f"{window_ops_ms:.5f} ms)")
+    return {**times, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "window_ops_bound_ms": window_ops_ms,
+            "chunk_bound_ms": chunk_bytes_ms}
 
 
 def pwm_kernel_row(dev, words):
@@ -395,11 +485,13 @@ def pwm_kernel_row(dev, words):
         torch.backends.cudnn.allow_tf32 = tf32
     del onehot, codes
     ms = median_ms(kernel)
+    device_ms = kernel_device_ms(kernel, "pwm_scores_kernel")
     plain_ms = median_ms(lambda: pk.pwm_scores_plain(words, matrix, w))
     # the store floor: fill_ over an output of the scores' bytes
     floor_ms = median_ms(lambda: out.fill_(0.0))
     bound_ms, bound_by = pwm_bound(w)
-    log(f"[kernels] pwm_scores_kernel w={w}: {ms:.4f} ms (plain "
+    log(f"[kernels] pwm_scores_kernel w={w}: {ms:.4f} ms (device "
+        f"{device_ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, conv1d {library_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by}, store floor {floor_ms:.4f} ms)")
     return {"name": "pwm_scores_kernel", "route": "cuda",
@@ -407,7 +499,8 @@ def pwm_kernel_row(dev, words):
             "replaces": "bionumpy_tpu/ops/pallas_pwm.py:32",
             "tpu_kernel": "_pwm_block_kernel",
             "launches": None, "max_abs_err": 0.0,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library": "conv1d one-hot",
             "store_floor_ms": floor_ms, "positions": n_pos, "window": w}
@@ -549,10 +642,9 @@ def phase_motif(dev, workdir: str, variants, lengths):
     return launches
 
 
-def profile_job(run, tag: str) -> None:
-    """One more run of the job under the CUDA profiler: the device's busy
-    time (the sum of kernel and copy times on the card, one stream)
-    against the run's wall time, and the kernels that take it."""
+def device_times(run):
+    """One run under the CUDA profiler: its wall time in us and the device
+    time in us of each kernel or copy by name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -566,6 +658,14 @@ def profile_job(run, tag: str) -> None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us
+    return wall_us, by_name
+
+
+def profile_job(run, tag: str) -> None:
+    """One more run of the job under the CUDA profiler: the device's busy
+    time (the sum of kernel and copy times on the card, one stream)
+    against the run's wall time, and the kernels that take it."""
+    wall_us, by_name = device_times(run)
     busy_us = sum(by_name.values())
     if not busy_us:
         log(f"[profile {tag}] the profiler saw no device time: not "
@@ -584,13 +684,21 @@ def profile_job(run, tag: str) -> None:
 
 def phase_checksum(dev, counts, variants, lengths):
     """kmer_checksum_streamed over the distinct variants, times the
-    copies, must equal the table's sums (mod 2^32)."""
+    copies, must equal the table's sums (mod 2^32); timed on the host
+    clock, then once more under the profiler for the device time of its
+    fullsum launches."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     flat = np.concatenate(variants)
     all_lengths = np.tile(lengths, len(variants))
+
+    def run():
+        return bt.kmer_checksum_streamed(flat, all_lengths, K, device=dev)
+
     kk.reset_launches()
-    n, lo, hi = bt.kmer_checksum_streamed(flat, all_lengths, K, device=dev)
+    t0 = time.perf_counter()
+    n, lo, hi = run()
+    wall = time.perf_counter() - t0
     launches = dict(kk.LAUNCHES)
     m32 = 0xFFFFFFFF
     h, c = counts.label_codes, counts.counts.astype(np.uint64)
@@ -602,7 +710,16 @@ def phase_checksum(dev, counts, variants, lengths):
         raise AssertionError(f"checksum {got} != table sums {want}")
     if launches["kmer_fullsum_kernel"] < 1:
         raise AssertionError("kmer_fullsum_kernel never launched")
+    _, by_name = device_times(run)
+    kernel_us = sum(us for name, us in by_name.items()
+                    if "kmer_fullsum_kernel" in name)
     log(f"[checksum] equal: {got}")
+    log("[checksum] " + json.dumps({
+        "wall_s": wall, "bases": int(all_lengths.sum()),
+        "launches": launches,
+        "fullsum_device_ms": kernel_us / 1e3 if kernel_us else None,
+        "device_busy_ms": sum(by_name.values()) / 1e3,
+        "gpu": gpu_line()}))
     return launches
 
 

@@ -110,7 +110,7 @@ def test_plain_keys_match_numpy_recount(k, layout):
             got, _numpy_keys(codes, lengths, n_positions, k, n_true))
 
 
-@pytest.mark.parametrize("k", [3, 31])
+@pytest.mark.parametrize("k", [1, 3, 15, 16, 17, 31])
 def test_plain_fullsum_matches_numpy_recount(k):
     codes, _, words, _, _ = _batch(40 + k, n_rows=400)
     n_positions = (words.numel() - 2) * kk.WORD_BASES
@@ -122,6 +122,68 @@ def test_plain_fullsum_matches_numpy_recount(k):
     want = [int((h & 0xFFFFFFFF).sum()) & 0xFFFFFFFF,
             int((h >> 32).sum()) & 0xFFFFFFFF]
     assert kk.kmer_fullsum(words, k).tolist() == want
+
+
+def _plain_sums(words, k, n_positions):
+    """[lo, hi] of the plain version over positions 0..n_positions-1."""
+    lo, hi = kk.window_limbs_plain(words, k)
+    return [int(lo[:n_positions].sum()) & 0xFFFFFFFF,
+            int(hi[:n_positions].sum()) & 0xFFFFFFFF]
+
+
+def _closed_form_sums(words, k, n):
+    """kmer_fullsum_kernel's arithmetic in numpy: the code sum of the
+    positions below n (two popcounts per whole word, the partial word
+    masked) times each limb's full weight, plus the codes in [0, k-1)
+    and [max(n, k-1), n+k-1) times their own weight less the full one
+    they were counted with.  uint64 throughout, reduced mod 2^32."""
+    w = words.numpy().view(np.uint32).astype(np.uint64)
+
+    def popc(x):
+        return np.unpackbits(x.astype("<u4").view(np.uint8)).sum(
+            dtype=np.uint64)
+
+    def digit_sum(x):
+        return popc(x) + popc(x & np.uint64(0xAAAAAAAA))
+
+    n_whole, rest = divmod(n, 16)
+    digits = digit_sum(w[:n_whole])
+    if rest:
+        digits += digit_sum(w[n_whole: n_whole + 1]
+                            & np.uint64((1 << 2 * rest) - 1))
+    edge = k - 1
+    codes = np.concatenate([np.arange(0, edge),
+                            np.arange(max(n, edge), n + edge)])
+    c = (w[codes >> 4] >> (2 * (codes & 15)).astype(np.uint64)) & np.uint64(3)
+    sums = []
+    for o, e in ((0, min(k, 16)), (16, max(k - 16, 0))):
+        full = ((1 << 2 * e) - 1) // 3
+        first = np.maximum(o, codes - n + 1)
+        last = np.minimum(o + e - 1, codes)
+        weight = np.where(first <= last,
+                          ((1 << 2 * (last - o + 1))
+                           - (1 << 2 * (np.maximum(first, o) - o))) // 3, 0)
+        weight = weight - np.where(codes < n, full, 0)
+        total = int(full) * int(digits) + int((c.astype(np.int64)
+                                               * weight).sum())
+        sums.append(total & 0xFFFFFFFF)
+    return sums
+
+
+FULLSUM_COUNTS = [1, 15, 17, 63, 511, 513, 1001, 4098]
+
+
+@pytest.mark.parametrize("k", range(1, kk.MAX_K + 1))
+def test_closed_form_fullsum_matches_plain_version(k):
+    """The closed form the kernel computes, against the plain version's
+    window-by-window sums, for whole batches and counts that end inside
+    a word or before the edges meet."""
+    _, _, words, _, _ = _batch(60 + k, n_rows=40)
+    n_positions = (words.numel() - 2) * kk.WORD_BASES
+    assert _closed_form_sums(words, k, n_positions) == \
+        kk.kmer_fullsum_plain(words, k).tolist()
+    for n in FULLSUM_COUNTS + [2, 16, 29, 31, 33]:
+        assert _closed_form_sums(words, k, n) == _plain_sums(words, k, n)
 
 
 @pytest.fixture
@@ -177,6 +239,64 @@ def test_kernels_write_exactly_their_positions_on_card(cuda, n_positions):
     want = pk.pwm_scores_plain(words, matrix, 11)[:n_positions]
     assert torch.equal(out[:n_positions], want)
     assert torch.isnan(out[n_positions:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, kk.MAX_K + 1))
+def test_fullsum_kernel_matches_plain_version_for_every_k_on_card(cuda, k):
+    """kmer_fullsum_kernel, through its wrapper (one launch a call),
+    equals the plain version exactly."""
+    _, _, words, _, _ = _batch(80 + k)
+    words = words.to(cuda)
+    before = kk.LAUNCHES["kmer_fullsum_kernel"]
+    torch.testing.assert_close(kk.kmer_fullsum(words, k),
+                               kk.kmer_fullsum_plain(words, k),
+                               rtol=0, atol=0)
+    assert kk.LAUNCHES["kmer_fullsum_kernel"] == before + 1
+
+
+def _fullsum_launch(words, n_positions, k, offset=0):
+    """[lo, hi] of one launch of the C entry point over the words from
+    word `offset` on."""
+    out = torch.zeros(2, dtype=torch.int32, device=words.device)
+    assert kk.build().kmer_fullsum_launch(
+        words.data_ptr() + 4 * offset, n_positions, k, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream) == 0
+    return (out.to(torch.int64) & 0xFFFFFFFF).tolist()
+
+
+def _past_two_waves(device):
+    """A position count past two waves of kmer_fullsum_kernel's
+    persistent grid, so that its main loop runs more than once a lane:
+    a wave is at most 8 resident blocks of 256 lanes on each SM, and a
+    block's share 32,768 positions (two 16-byte loads a lane)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 * sms * 8 * 32_768 + (1 << 21) + 3 * kk.WORD_BASES + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_positions", FULLSUM_COUNTS + ["past_two_waves"])
+def test_fullsum_kernel_sums_exactly_its_positions_on_card(cuda,
+                                                           n_positions):
+    """Through the C entry point, counts the wrappers never pass (inside
+    a word, short of the edges, past two waves of the grid) and words
+    that start 0-3 words past a 16-byte boundary: the kernel gives the
+    plain version's sums over the first n_positions positions, and two
+    launches give the same sums."""
+    if n_positions == "past_two_waves":
+        n_positions = _past_two_waves(cuda)
+    rng = np.random.default_rng(n_positions)
+    n_words = n_positions // kk.WORD_BASES + 8
+    words = torch.from_numpy(rng.integers(
+        0, 2 ** 32, n_words, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(cuda)
+    for k in (1, 15, 16, 17, 31):
+        for offset in range(4):
+            want = _plain_sums(words[offset:], k, n_positions)
+            assert _fullsum_launch(words, n_positions, k, offset) == want, \
+                (k, offset)
+    again = [_fullsum_launch(words, n_positions, 31) for _ in range(2)]
+    assert again[0] == again[1] == _plain_sums(words, 31, n_positions)
 
 
 @pytest.mark.cuda
