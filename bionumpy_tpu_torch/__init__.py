@@ -8,19 +8,31 @@ run on the card unless the caller passes device="cpu", where every
 kernel runs its plain PyTorch version.
 
 Ported so far: exact gzip-FASTQ -> k-mer counting
-(pipeline.count_kmers_fastq) and the streamed k-mer checksum
+(pipeline.count_kmers_fastq, over host-packed words or raw bytes parsed on
+the device) and the streamed k-mer checksum
 (ops.kmers.kmer_checksum_streamed), through the hand-written kernels of
 csrc/kmers.cu; the gzip-FASTQ motif scan to exact match positions
 (pipeline.get_motif_matches_fastq, with PWM and read_jaspar_matrix),
-through the hand-written kernel of csrc/pwm.cu.
+through the hand-written kernel of csrc/pwm.cu; the encoded-array data
+model (EncodedArray, EncodedRaggedArray, as_encoded_array,
+change_encoding) with the k-mer API on it (get_kmers, count_kmers,
+count_encoded), whose arrays upload once per device (ops/resident.py).
 """
 from . import instrument
+from .encoded_array import (EncodedArray, EncodedRaggedArray,
+                            as_encoded_array, change_encoding)
+from .encodings import DNAEncoding
 from .io.jaspar import read_jaspar_matrix
 from .ops.kmers import kmer_checksum_streamed
 from .pipeline import AccOverflow, count_kmers_fastq, get_motif_matches_fastq
-from .sequence.count_encoded import SparseEncodedCounts
+from .sequence.count_encoded import (EncodedCounts, SparseEncodedCounts,
+                                     count_encoded)
+from .sequence.kmers import count_kmers, get_kmers
 from .sequence.position_weight_matrix import PWM
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
-           "SparseEncodedCounts", "AccOverflow", "instrument"]
+           "EncodedArray", "EncodedRaggedArray", "as_encoded_array",
+           "change_encoding", "DNAEncoding", "get_kmers", "count_kmers",
+           "EncodedCounts", "SparseEncodedCounts", "count_encoded",
+           "AccOverflow", "instrument"]

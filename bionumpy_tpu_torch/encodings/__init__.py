@@ -1,60 +1,57 @@
-"""Minimal alphabet encodings for the port: the DNA lookup table the
-k-mer path needs (after bionumpy_tpu/encodings/alphabet_encoding.py)."""
-from __future__ import annotations
+"""Encodings subpackage (the port's copy of bionumpy_tpu/encodings/__init__.py).
 
+Not copied yet: StringEncoding (string_encodings.py), BoolStringEncoding
+(bool_encoding.py) and the VCF encodings (vcf_encoding.py); nothing the
+port runs needs them (ROADMAP queue 1, the encodings item)."""
 import numpy as np
 
-_INVALID = 255
+from ..encoded_array import BaseEncoding, Encoding, NumericEncoding
+from .alphabet_encoding import (ACGTEncoding, ACGTnEncoding, ACTGEncoding,
+                                ACTGnEncoding, ACUGEncoding, AlphabetEncoding,
+                                AminoAcidEncoding, BamEncoding,
+                                CigarOpEncoding, DNAEncoding,
+                                FlatAlphabetEncoding, RNAENcoding,
+                                RNAEncoding, StrandEncoding,
+                                get_alphabet_encodings)
+from .exceptions import EncodingError
+
+__all__ = ["BaseEncoding", "Encoding", "NumericEncoding", "AlphabetEncoding",
+           "AminoAcidEncoding", "DNAEncoding", "RNAEncoding", "ACGTEncoding",
+           "StrandEncoding", "CigarOpEncoding", "BamEncoding",
+           "QualityEncoding", "CigarEncoding", "DigitEncoding",
+           "EncodingError", "KmerEncoding"]
 
 
-class AlphabetEncoding:
-    """Case-insensitive byte -> code encoding over a small alphabet,
-    as a 256-entry lookup table (255 = invalid)."""
+class DigitEncodingFactory(NumericEncoding):
+    """ASCII digit-offset numeric encoding (reference:
+    bionumpy/encodings/__init__.py:11-26)."""
 
-    def __init__(self, alphabet: str):
-        self._raw_alphabet = alphabet.upper()
-        alpha = np.frombuffer(self._raw_alphabet.encode("ascii"), np.uint8)
-        lut = np.full(256, _INVALID, dtype=np.uint8)
-        codes = np.arange(len(alpha), dtype=np.uint8)
-        lut[alpha] = codes
-        lut[alpha + (ord("a") - ord("A"))] = codes
-        self._alphabet = alpha
-        self._lookup = lut
+    def __init__(self, min_code: str):
+        self._min_code = ord(min_code)
 
     @property
-    def lookup_table(self) -> np.ndarray:
-        """256-entry encode table (byte -> code, 255 = invalid)."""
-        return self._lookup
+    def min_code(self) -> int:
+        return self._min_code
 
-    @property
-    def alphabet_size(self) -> int:
-        return self._alphabet.size
+    def _encode(self, byte_array):
+        return np.asarray(byte_array) - self._min_code
 
-    def encode(self, text: str) -> np.ndarray:
-        """uint8 codes of `text`; raises ValueError on a letter outside
-        the alphabet."""
-        codes = self._lookup[np.frombuffer(text.encode("ascii"), np.uint8)]
-        if codes.size and int(codes.max()) == _INVALID:
-            bad = text[int(np.flatnonzero(codes == _INVALID)[0])]
-            raise ValueError(f"{bad!r} is not in {self}")
-        return codes
+    def _decode(self, digits):
+        return np.asarray(digits) + self._min_code
 
-    def decode(self, codes) -> str:
-        return bytes(self._alphabet[np.asarray(codes)]).decode("ascii")
-
-    def __str__(self):
-        return f"AlphabetEncoding('{self._raw_alphabet}')"
-
-    __repr__ = __str__
+    def __repr__(self):
+        return f"DigitEncoding(min_code={self._min_code})"
 
     def __eq__(self, other):
-        return (isinstance(other, AlphabetEncoding)
-                and self._raw_alphabet == other._raw_alphabet)
+        return isinstance(other, DigitEncodingFactory) and \
+            self._min_code == other._min_code
 
     def __hash__(self):
-        return hash(self._raw_alphabet)
+        return hash(("DigitEncodingFactory", self._min_code))
 
 
-DNAEncoding = AlphabetEncoding("ACGT")
+DigitEncoding = DigitEncodingFactory("0")
+QualityEncoding = DigitEncodingFactory("!")
+CigarEncoding = DigitEncodingFactory(chr(0))
 
-__all__ = ["AlphabetEncoding", "DNAEncoding"]
+from .kmer_encodings import KmerEncoding  # noqa: E402

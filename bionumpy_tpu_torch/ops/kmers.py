@@ -21,9 +21,11 @@ from .device import bucket_size, resolve_device
 from .kmer_kernels import SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
-           "kmer_sorted_runs_packed", "sorted_runs_from_keys",
+           "pack_codes", "kmer_sorted_runs_packed", "sorted_runs_from_keys",
            "counts_from_runs", "kmer_sentinel_table_packed",
-           "kmer_fullsum_packed", "kmer_checksum_streamed", "heads_first"]
+           "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
+           "sparse_count_tables", "kmer_fullsum_packed",
+           "kmer_checksum_streamed", "heads_first"]
 
 
 def prepare_packed(flat_codes: np.ndarray, lengths: np.ndarray,
@@ -43,6 +45,19 @@ def pack_codes_host(flat_codes: np.ndarray, n_positions: int) -> np.ndarray:
     from ..native import pack_2bit_fill
     total = n_positions + 2 * WORD_BASES
     return pack_2bit_fill(flat_codes, total // 4).view(np.uint32)
+
+
+def pack_codes(codes: torch.Tensor, n_positions: int) -> torch.Tensor:
+    """Device twin of pack_codes_host: uint8 codes (each 0-3) packed 2 bits
+    each into the int32 view of n_positions/16 + 2 words (zero-filled past
+    the codes), the same little-endian layout: four codes a byte, code 0
+    in the lowest bits, four bytes a word."""
+    buf = torch.zeros(n_positions + 2 * WORD_BASES, dtype=torch.uint8,
+                      device=codes.device)
+    buf[: codes.numel()] = codes
+    q = buf.view(-1, 4)
+    packed = q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)
+    return packed.view(torch.int32)
 
 
 def heads_first(is_head: torch.Tensor, cap: int) -> torch.Tensor:
@@ -116,6 +131,59 @@ def kmer_sentinel_table_packed(words: torch.Tensor, ends: torch.Tensor,
     live = torch.arange(cap, device=uniq.device) < n_unique
     keys = torch.where(live, uniq, SENTINEL)
     return keys, cnt, torch.stack([n_unique, n_valid])
+
+
+def kmer_count_small_packed(words: torch.Tensor, ends: torch.Tensor, k: int,
+                            n_counts: int, n_true: int) -> torch.Tensor:
+    """Exact counts over the 4^k labels (k <= 15) of the windows inside
+    their rows and below n_true, as int64 (n_counts,): the kmer_keys keys,
+    the sentinel ones sent to a dump bin that is dropped.  Equal to the
+    JAX package's kmer_count_small_packed, which counts every position
+    and subtracts the row-crossing and padding windows."""
+    if 4 ** k > n_counts or k > 15:
+        raise ValueError(f"k={k} needs 4^k <= n_counts={n_counts}, k <= 15")
+    return count_keys(kmer_keys(words, ends, k, n_true), n_counts)
+
+
+def count_keys(keys: torch.Tensor, n_counts: int) -> torch.Tensor:
+    """int64 (n_counts,) count of each value below n_counts among the
+    int64 keys; larger keys (the sentinel) go to a dump bin that is
+    dropped.  One index_add_, so nothing waits for the device."""
+    counts = torch.zeros(n_counts + 1, dtype=torch.int64, device=keys.device)
+    ones = torch.ones(1, dtype=torch.int64, device=keys.device)
+    counts.index_add_(0, torch.clamp(keys, max=n_counts),
+                      ones.expand(keys.numel()))
+    return counts[:n_counts]
+
+
+def kmer_window_hashes(words: torch.Tensor, ends: torch.Tensor, k: int,
+                       n_true: int) -> torch.Tensor:
+    """int64 hash of every window that lies inside its row and below
+    n_true, in position order: the flat values of get_kmers.  (A k <= 31
+    hash is below 2^62, so no real key equals the sentinel.)"""
+    keys = kmer_keys(words, ends, k, n_true)
+    return keys[keys != SENTINEL]
+
+
+def sparse_count_tables(words: torch.Tensor, ends: torch.Tensor, k: int,
+                        n_true: int, cap: int = 1 << 20):
+    """Sorted (hashes uint64, counts int64) host table of one packed chunk:
+    the device sort + compaction, then a fetch of the first n_unique rows
+    only.  A chunk with more than `cap` distinct k-mers is compacted again
+    at a cap that fits (the JAX package's doubling loop)."""
+    n_positions = (words.numel() - 2) * WORD_BASES
+    keys = kmer_keys(words, ends, k, n_true)
+    while True:
+        uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
+            keys, min(cap, n_positions))
+        n_uni = int(n_unique)
+        if n_uni <= cap or cap >= n_positions:
+            break
+        cap = max(cap * 2, 1 << max(n_uni - 1, 1).bit_length())
+    counts = counts_from_runs(run_starts, n_unique, n_valid,
+                              run_starts.numel())
+    table = torch.stack([uniq[:n_uni], counts[:n_uni]]).cpu().numpy()
+    return table[0].view(np.uint64), table[1]
 
 
 def kmer_fullsum_packed(words: torch.Tensor, k: int) -> torch.Tensor:

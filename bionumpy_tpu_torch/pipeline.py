@@ -7,6 +7,12 @@ File-in to counts-out, with the stages overlapped:
   parse+pack   fused native FASTQ scan + encode + 2-bit pack (csrc/host)
   H2D          packed words (0.25 B/base) + row ends
   count        kmer_keys kernel + sort + run compaction (ops/kmers.py)
+
+or, with the device-parse transport, the raw inflated bytes cross
+instead and the scan, encode and pack run on the card (ops/parse.py)
+before the same count; "auto" times one batch of each and keeps the
+faster.  Then:
+
   fold         per-batch tables merge into a device accumulator every
                ACC_FOLD batches (parallel/sparse_parallel.py)
   D2H          the final (hash, count) table only, in one copy
@@ -26,6 +32,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
@@ -41,6 +48,7 @@ from .io.pgzip import _inflate_segment, inflate_members, member_offsets
 from .ops.device import bucket_size, resolve_device
 from .ops.kmer_kernels import MAX_K
 from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
+from .ops.parse import fastq_to_sparse_kmer_table
 from .ops.pwm import pwm_match_compact, pwm_scores_packed
 from .parallel.sparse_parallel import merge_hash_tables
 from .sequence.count_encoded import SparseEncodedCounts
@@ -447,13 +455,16 @@ def _tail_entry_cut(view: np.ndarray, n_newlines: int) -> int:
     return 0
 
 
-def _batch_arrays(path: str, target_bases: int, pool: ThreadPoolExecutor):
+def _batch_arrays(path: str, target_bases: int, pool: ThreadPoolExecutor,
+                  fused_parse: bool = True):
     """Fast ingest: yield entry-aligned inflated FASTQ batches as uint8
-    arrays (member-table path) or bytes (generic carry path).  With the
-    host library loaded, ENTRY-ALIGNED member layouts short-circuit to
-    pre-parsed (words, ends, n_bases, n_reads) tuples (the
-    _parse_batch contract) built member-by-member while cache-warm;
-    any misaligned member drops the file back to the raw slab path.
+    arrays (member-table path) or bytes (generic carry path).  With
+    `fused_parse` and the host library loaded, ENTRY-ALIGNED member
+    layouts short-circuit to pre-parsed (words, ends, n_bases, n_reads)
+    tuples (the _parse_batch contract) built member-by-member while
+    cache-warm; any misaligned member drops the file back to the raw slab
+    path.  The device-parse transport passes fused_parse=False: it wants
+    the raw bytes.
 
     Multi-member gzip (pigz-style output, the common case for large
     FASTQ) carries each member's raw size in its ISIZE footer, so the
@@ -542,7 +553,7 @@ def _batch_arrays(path: str, target_bases: int, pool: ThreadPoolExecutor):
     a = 0
     a_start = 0
     bad = False    # implausible member seen: fall back from member a
-    use_fused = native._load() is not None
+    use_fused = fused_parse and native._load() is not None
     while True:
         # collect the group [a, b): members until target_raw raw bytes
         group = []     # (start, end, isize, raw offset in group)
@@ -739,6 +750,17 @@ def _parse_batch(raw) -> Tuple[np.ndarray, np.ndarray, int, int]:
     return out.view(np.uint32), ends, n_bases, len(lengths)
 
 
+def _pad_raw_batch(raw):
+    """Device-parse transport: raw bytes (or a uint8 array) zero-padded
+    into a power-of-two bucket; returns (padded, true length)."""
+    with stage("pad", n_bytes=len(raw)):
+        bucket = bucket_size(max(len(raw), 1), 1 << 14)
+        padded = np.zeros(bucket, np.uint8)
+        padded[: len(raw)] = raw if isinstance(raw, np.ndarray) \
+            else np.frombuffer(raw, np.uint8)
+    return padded, len(raw)
+
+
 def _make_acc(acc_cap: int, device):
     """Empty accumulator: acc_cap sentinel keys with zero counts, and
     its live-row count as a device scalar."""
@@ -773,6 +795,16 @@ def _meta_add_packed(meta_acc: torch.Tensor, meta: torch.Tensor) -> None:
     accumulator, in place and on the device."""
     meta_acc[:2] = torch.stack([torch.maximum(meta_acc[0], meta[0]),
                                 meta_acc[1] + meta[1]])
+
+
+def _meta_add_device(meta_acc: torch.Tensor, meta: torch.Tensor) -> None:
+    """Fold a device-parse batch's (5,) [n_unique, n_valid, n_entries, ok,
+    n_bases] into the meta accumulator, in place and on the device: ok
+    folds as a minimum."""
+    _meta_add_packed(meta_acc, meta[:2])
+    meta_acc[2:] = torch.stack([meta_acc[2] + meta[2],
+                                torch.minimum(meta_acc[3], meta[3]),
+                                meta_acc[4] + meta[4]])
 
 
 class AccOverflow(ValueError):
@@ -811,7 +843,7 @@ def _fetch_acc(acc, acc_cap: int, meta_dev: torch.Tensor = None):
 def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
                       target_bases: int = TARGET_BUCKET - (1 << 21),
                       device=None, n_threads: int = None,
-                      device_parse=False, acc_cap: int = None,
+                      device_parse="auto", acc_cap: int = None,
                       mesh=None, spill_windows: int = None):
     """Count all k-mers (1 <= k <= 31) of a FASTQ file, plain or
     (multi-member) gzip, overlapping host inflate/parse with device
@@ -819,15 +851,20 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
 
     `device`: None is the card ("cuda"), which must be present; pass
     "cpu" to run the kernels' plain versions on the host.
-    `device_parse`: only the packed transport is ported (the host
-    parses and ships 2-bit-packed words), so False, "packed" and "auto"
-    all select it; True and "device" raise NotImplementedError.
+    `device_parse` selects the transport: False (or "packed") parses on
+    the host and ships 2-bit-packed words (0.25 B/base); True (or
+    "device") ships the raw inflated bytes and scans, encodes and packs
+    them on the device (ops/parse.py); "auto" runs batch 0 packed and
+    batch 1 on the device, waits for each, and keeps the faster.  Entry-
+    aligned gzip members arrive parsed by the host either way, except
+    with True/"device".
     `cap` bounds the distinct k-mers of one batch's table; a batch that
     overflows it makes the whole job rerun once at a cap that fits.
     `acc_cap` bounds the distinct k-mers held in the device accumulator
     (default max(4*cap, 2^22)); AccOverflow is raised when the job has
     that many or more.  `spill_windows` fetches the accumulator into a
-    host table every that many folds.
+    host table every that many folds.  A malformed batch on the device
+    transport raises ValueError at the end of the job.
 
     Returns a SparseEncodedCounts over the DNA k-mer encoding plus a
     stats dict {n_reads, n_bases, n_kmers}."""
@@ -835,10 +872,12 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP queue 1 item 11, "
             "multi-device)")
-    if device_parse not in (False, "packed", "auto"):
-        raise NotImplementedError(
-            "the device-parse transport is not ported yet (ROADMAP "
-            "queue 1 item 5); use device_parse=False")
+    transports = {"auto": None, True: "device", False: "packed",
+                  "device": "device", "packed": "packed"}
+    if device_parse not in transports:
+        raise ValueError(f"device_parse must be one of {list(transports)}, "
+                         f"got {device_parse!r}")
+    modes = transports[device_parse]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must lie in 1..{MAX_K}, got {k}")
     device = resolve_device(device)
@@ -848,21 +887,35 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
     if acc_cap is None:
         acc_cap = max(4 * cap, 1 << 22)
     on_card = device.type == "cuda"
+    lut_d = torch.from_numpy(DNAEncoding.lookup_table).to(device)
 
     acc = _make_acc(acc_cap, device)
     meta_acc = _meta_init(device)
     pending = []        # device (keys, counts) tables awaiting a fold
-    in_flight = deque()  # (event, host words, host ends) per batch
+    in_flight = deque()  # (event, host arrays) per batch
     spilled = (np.empty(0, np.uint64), np.empty(0, np.int64))
     n_reads = n_bases = n_batches = 0
+    any_device_parse = False
     kmers_in_acc = 0    # host-side UPPER BOUND (bases >= kmers)
     n_folds = 0
     last_spill_fold = -1
 
+    def hold(*host_arrays):
+        """The asynchronous copies read the host arrays: keep them alive
+        until the batch's work has completed, and block on batches
+        _IN_FLIGHT launches old."""
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+            in_flight.append((event, host_arrays))
+            while len(in_flight) > _IN_FLIGHT:
+                with stage("backpressure"):
+                    in_flight.popleft()[0].synchronize()
+
     def count_packed(words, ends, nb):
         """Launch one batch's table; its meta folds into the device meta
         accumulator.  Nothing waits for the device here except the
-        bounded backpressure on batches _IN_FLIGHT launches old."""
+        bounded backpressure."""
         with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
             words_d = torch.from_numpy(words.view(np.int32)).to(
                 device, non_blocking=True)
@@ -871,16 +924,21 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
             keys, cnt, meta = kmer_sentinel_table_packed(
                 words_d, ends_d, k, nb, cap)
             _meta_add_packed(meta_acc, meta)
-        if on_card:
-            # the asynchronous copies read the host arrays: keep them
-            # alive until the batch's work has completed
-            event = torch.cuda.Event()
-            event.record()
-            in_flight.append((event, words, ends))
-            while len(in_flight) > _IN_FLIGHT:
-                with stage("backpressure"):
-                    in_flight.popleft()[0].synchronize()
+        hold(words, ends)
         return keys, cnt
+
+    def count_device_parse(padded, n_true):
+        """The device-parse twin of count_packed: the raw bytes go over,
+        and the scan waits once for the device to learn the batch's base
+        count (ops/parse.py)."""
+        with stage("H2D", n_bytes=padded.nbytes):
+            raw_d = torch.from_numpy(padded).to(device, non_blocking=True)
+        with stage("dispatch"):
+            table, meta = fastq_to_sparse_kmer_table(
+                raw_d, lut_d, n_true, padded.shape[0] // 16, k, cap)
+            _meta_add_device(meta_acc, meta)
+        hold(padded)
+        return table
 
     def fold_pending(force=False):
         """Fold ACC_FOLD pending tables into the accumulator (all of
@@ -903,16 +961,25 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         acc = _make_acc(acc_cap, device)
         kmers_in_acc = 0
 
-    def launch(parsed):
-        nonlocal n_reads, n_bases, n_batches, kmers_in_acc, last_spill_fold
-        words, ends, nb, nr = parsed
-        table = count_packed(words, ends, nb)
-        n_bases += nb
-        n_reads += nr
+    def launch(prepped):
+        nonlocal n_reads, n_bases, n_batches, kmers_in_acc, \
+            last_spill_fold, any_device_parse
+        mode, payload = prepped
+        if mode == "packed":
+            words, ends, nb, nr = payload
+            table = count_packed(words, ends, nb)
+            n_bases += nb
+            n_reads += nr
+            bound = nb
+        else:
+            padded, n_true = payload
+            table = count_device_parse(padded, n_true)
+            bound = int(padded.shape[0])  # k-mers <= raw batch bytes
+            any_device_parse = True
         n_batches += 1
-        if kmers_in_acc + nb > _SPILL_LIMIT:
+        if kmers_in_acc + bound > _SPILL_LIMIT:
             spill_acc()
-        kmers_in_acc += nb
+        kmers_in_acc += bound
         pending.append(table)
         fold_pending()
         if spill_windows and n_folds > last_spill_fold \
@@ -921,22 +988,56 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
             # final transfer only covers k-mers first seen since
             last_spill_fold = n_folds
             spill_acc()
+        if modes is None and n_batches <= 2 and on_card:
+            # the "auto" probe times each mode's real throughput: without
+            # a wait the asynchronous launch times only the enqueue
+            torch.cuda.synchronize(device)
 
+    def prep(mode, raw):
+        if isinstance(raw, tuple):  # fused ingest: already parsed
+            return "packed", raw
+        if mode == "packed":
+            return mode, _parse_batch(raw)
+        return mode, _pad_raw_batch(raw)
+
+    def mode_for(i):
+        if modes is not None:
+            return modes
+        return "packed" if i != 1 else "device"
+
+    batch_times = {}
     pool = ThreadPoolExecutor(n_threads)
     worker = ThreadPoolExecutor(1)
     try:
-        # the worker parses batch i+1 while batch i launches
-        parsed = None
-        for raw in _prefetched(_batch_arrays(path, target_bases, pool)):
-            nxt = worker.submit(_parse_batch, raw)
-            if parsed is not None:
-                launch(parsed.result())
-            parsed = nxt
-        if parsed is not None:
-            launch(parsed.result())
+        # the worker prepares batch i+1 while batch i launches
+        batches = _prefetched(_batch_arrays(
+            path, target_bases, pool, fused_parse=(modes != "device")))
+        prep_fut = None
+        chosen = modes
+        i = 0
+        t_mark = time.perf_counter()
+        for raw in batches:
+            if prep_fut is not None:
+                prepped = prep_fut.result()
+                prep_fut = worker.submit(prep, chosen or mode_for(i + 1),
+                                         raw)
+                launch(prepped)
+                now = time.perf_counter()
+                batch_times[prepped[0]] = min(
+                    batch_times.get(prepped[0], 9e9), now - t_mark)
+                t_mark = now
+                i += 1
+                if chosen is None and i >= 2:
+                    chosen = min(batch_times, key=batch_times.get)
+            else:
+                prep_fut = worker.submit(prep, mode_for(i), raw)
+        if prep_fut is not None:
+            launch(prep_fut.result())
     finally:
         worker.shutdown(wait=False)
         pool.shutdown(wait=False)
+    logger.info("count_kmers_fastq: %d batches; transport %s; fastest "
+                "batch (s) by transport %s", n_batches, chosen, batch_times)
 
     if n_batches == 0:
         stats = {"n_reads": n_reads, "n_bases": n_bases, "n_kmers": 0}
@@ -972,13 +1073,18 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         if int(e.meta_h[0]) > cap:
             return rerun(int(e.meta_h[0]))
         raise
-    max_unique = int(meta_h[0])
-    if max_unique > cap:
-        return rerun(max_unique)
+    meta = dict(zip(META_FIELDS, (int(v) for v in meta_h)))
+    if any_device_parse:
+        if not meta["ok"]:
+            raise ValueError("malformed FASTQ batch (device scan)")
+        n_reads += meta["n_entries"]
+        n_bases += meta["n_bases"]
+    if meta["max_unique"] > cap:
+        return rerun(meta["max_unique"])
     if len(spilled[0]):
         hashes, counts = merge_sorted_tables(*spilled, hashes, counts)
     stats = {"n_reads": n_reads, "n_bases": n_bases,
-             "n_kmers": int(meta_h[1])}
+             "n_kmers": meta["n_kmers"]}
     return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
                                counts), stats
 

@@ -1,8 +1,9 @@
 """Position weight matrices (the port's copy of the PWM class of
 bionumpy_tpu/sequence/position_weight_matrix.py:17-97).
 
-The port has no encoded or ragged sequence arrays yet, so a sequence is a
-`str` over the PWM's alphabet or a numpy array of its codes.  The scans
+A sequence is a `str` over the PWM's alphabet or a numpy array of its
+codes; encoded and ragged arrays (get_motif_scores and the like) are still
+to be ported.  The scans
 over whole files run on the card through pipeline.get_motif_matches_fastq;
 the host methods here score in float64, as the JAX package's do.
 """
@@ -13,7 +14,7 @@ from typing import Dict
 
 import numpy as np
 
-from ..encodings import AlphabetEncoding
+from ..encodings import AlphabetEncoding, EncodingError
 
 
 def _pwm_from_counts(count_matrix):
@@ -46,7 +47,10 @@ class PWM:
     def _codes(self, sequence) -> np.ndarray:
         """Codes of a str over the alphabet, or a validated code array."""
         if isinstance(sequence, str):
-            return self._encoding.encode(sequence)
+            try:
+                return self._encoding.encode(sequence).raw()
+            except EncodingError as err:
+                raise ValueError(err.message) from err
         if isinstance(sequence, np.ndarray) and sequence.dtype.kind in "iu":
             if sequence.size and (int(sequence.min()) < 0 or int(
                     sequence.max()) >= len(self._alphabet)):

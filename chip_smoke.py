@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full size and holds every kernel of
-them against its plain PyTorch version: gzip FASTQ -> exact 31-mer
-(hash, count) table, on the benchmark's headline job (2048 gzip members,
-~446 M bases, 2.048 M reads, generated from a seed), and gzip FASTQ ->
-exact PWM match positions, on the motif job's shape (the first 512
-members of the same file, ~111 M bases).  Phases, each of which raises
-on failure:
+Drives the port's paths at full size and holds every kernel of them
+against its plain PyTorch version: gzip FASTQ -> exact 31-mer (hash,
+count) table, on the benchmark's headline job (2048 gzip members, ~446 M
+bases, 2.048 M reads, generated from a seed), over host-packed words and
+over raw bytes parsed on the card; gzip FASTQ -> exact PWM match
+positions, on the motif job's shape (the first 512 members of the same
+file, ~111 M bases); and the user-level k-mer API over the motif job's
+reads as one EncodedRaggedArray.  Phases, each of which raises on
+failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -37,7 +39,21 @@ on failure:
                members, warm-up + timed run; the (read, offset) matches
                must equal a numpy recount, and the pwm_scores kernel
                must have launched once per batch; profiled as phase 4
-  6. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
+  6. device-parse  count_kmers_fastq(device_parse=True) over the phase 4
+               file: warm-up, timed and profiled runs, then one with
+               "auto"; each table must equal the recount and phase 4's
+               packed table, the stats the packed run's, and kmer_keys
+               must have launched once per batch; prints the wall, the
+               H2D bytes beside the packed run's, the device's busy time
+               and idle share, the peak device memory and the transport
+               "auto" kept
+  7. user API  the motif job's 512,000 reads (112.5 M bases) as one
+               EncodedRaggedArray: count_kmers(s, 31), count_kmers(s, 12)
+               and get_kmers(s, 21), each equal to a numpy recount of
+               the 16 variants times their copies, with one upload of the
+               array for the three; prints each call's time, the peak
+               device memory and the kernel launches
+  8. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
                with the table's sums; prints its wall and, from one more
                profiled run, the device time of its fullsum launches
 
@@ -138,19 +154,24 @@ def make_job(path: str, n_variants: int, copies: int, n_reads: int,
     return variants, lengths
 
 
+def variant_hashes(codes, lengths, k: int) -> np.ndarray:
+    """uint64 hashes of the windows of one variant's reads that lie
+    inside their read, in position order (numpy recount)."""
+    ends = np.cumsum(lengths)
+    dist = np.repeat(ends, lengths) - np.arange(int(lengths.sum()))
+    n = len(codes) - k + 1
+    h = np.zeros(n, np.uint64)
+    for j in range(k):
+        h |= codes[j: j + n].astype(np.uint64) << np.uint64(2 * j)
+    return h[dist[:n] >= k]
+
+
 def expected_table(variants, lengths, copies: int, k: int):
     """Exact (hashes uint64, counts int64) of the job by a numpy recount
     of each distinct variant, times its copies."""
-    ends = np.cumsum(lengths)
-    dist = np.repeat(ends, lengths) - np.arange(int(lengths.sum()))
-    tables = []
-    for codes in variants:
-        n = len(codes) - k + 1
-        h = np.zeros(n, np.uint64)
-        for j in range(k):
-            h |= codes[j: j + n].astype(np.uint64) << np.uint64(2 * j)
-        tables.append(h[dist[:n] >= k])
-    uniq, counts = np.unique(np.concatenate(tables), return_counts=True)
+    uniq, counts = np.unique(np.concatenate(
+        [variant_hashes(codes, lengths, k) for codes in variants]),
+        return_counts=True)
     return uniq, counts.astype(np.int64) * copies
 
 
@@ -187,24 +208,27 @@ def kernel_device_ms(fn, kernel: str, runs: int = TIMING_RUNS) -> float:
     of fn under the CUDA profiler: the kernel's own duration, without the
     host's launch gaps that CUDA events around a call of a few
     microseconds also hold.  The mean is over the launches the profiler
-    recorded, which may miss one at the window's edge."""
+    recorded, which may miss one at the window's edge.  A window in which
+    the profiler recorded none of them (seen once with torch 2.11) is
+    taken again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for e in prof.key_averages():
-        if re.search(rf"\b{kernel}\b", e.key):
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-            n += e.count
-    if not 0 < n <= runs or not us:
-        raise AssertionError(f"the profiler saw {n} launches of {kernel} "
-                             f"in {runs} calls")
-    return us / n / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for e in prof.key_averages():
+            if re.search(rf"\b{kernel}\b", e.key):
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                n += e.count
+        if 0 < n <= runs and us:
+            return us / n / 1e3
+    raise AssertionError(f"the profiler saw {n} launches of {kernel} in "
+                         f"{runs} calls, three windows running")
 
 
 def pwm_matrix(seed: int, window: int):
@@ -556,8 +580,9 @@ def phase_job(dev, workdir: str):
         "gpu": gpu_line()}))
     log(f"[job] split: {bt.instrument.summary(total=wall)}")
     log("[job] stages: " + json.dumps(bt.instrument.report()))
+    stages = bt.instrument.report()
     profile_job(run, "job")
-    return launches, counts, variants, lengths
+    return launches, counts, stats, stages, variants, lengths
 
 
 def phase_motif(dev, workdir: str, variants, lengths):
@@ -661,25 +686,179 @@ def device_times(run):
     return wall_us, by_name
 
 
-def profile_job(run, tag: str) -> None:
+def profile_job(run, tag: str) -> dict:
     """One more run of the job under the CUDA profiler: the device's busy
     time (the sum of kernel and copy times on the card, one stream)
-    against the run's wall time, and the kernels that take it."""
+    against the run's wall time, and the kernels that take it.  Returns
+    what it prints (empty when the profiler saw no device time)."""
     wall_us, by_name = device_times(run)
     busy_us = sum(by_name.values())
     if not busy_us:
         log(f"[profile {tag}] the profiler saw no device time: not "
             f"measured")
-        return
+        return {}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = ("kmer_keys_kernel", "kmer_fullsum_kernel", "pwm_scores_kernel")
-    log(f"[profile {tag}] " + json.dumps({
+    out = {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us,
         "top_ms": {name[:80]: us / 1e3 for name, us in top},
         "port_kernels_ms": {kernel: sum(
             us for name, us in by_name.items() if kernel in name) / 1e3
-            for kernel in ours}}))
+            for kernel in ours}}
+    log(f"[profile {tag}] " + json.dumps(out))
+    return out
+
+
+def phase_device_parse(dev, workdir: str, packed, packed_stats,
+                       packed_stages):
+    """The headline job over the device-parse transport: raw inflated
+    bytes to the card, scanned, encoded and packed there (ops/parse.py),
+    then counted as in phase 4.  Returns the kmer_keys launches of the
+    timed run and of the "auto" run."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    path = os.path.join(workdir, "job.fq.gz")
+
+    def run(mode=True):
+        return bt.count_kmers_fastq(path, K, cap=1 << 21, device_parse=mode,
+                                    device=dev)
+
+    def check(counts, stats, tag):
+        if not (np.array_equal(counts.label_codes, packed.label_codes)
+                and np.array_equal(counts.counts, packed.counts)):
+            raise AssertionError(f"the {tag} table differs from the "
+                                 f"recount and the packed table")
+        if stats != packed_stats:
+            raise AssertionError(f"{tag} stats {stats} != the recount's "
+                                 f"{packed_stats}")
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    log(f"[device-parse] warm-up run {time.perf_counter() - t0:.2f} s")
+    bt.instrument.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    counts, stats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kk.LAUNCHES)
+    stages = bt.instrument.report()
+    n_batches = stages["dispatch"]["calls"]
+    check(counts, stats, "device-parse")
+    if stages.get("pad", {}).get("calls") != n_batches:
+        raise AssertionError("a batch took the packed transport")
+    if launches["kmer_keys_kernel"] < n_batches:
+        raise AssertionError(f"kmer_keys_kernel launched "
+                             f"{launches['kmer_keys_kernel']} times for "
+                             f"{n_batches} batches")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[device-parse] exact: equal to the recount and the packed table; "
+        f"{n_batches} batches")
+    log(f"[device-parse] split: {bt.instrument.summary(total=wall)}")
+    log("[device-parse] stages: " + json.dumps(stages))
+    prof = profile_job(run, "device-parse")
+
+    bt.instrument.reset()
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    counts, stats = run("auto")
+    torch.cuda.synchronize()
+    auto_wall = time.perf_counter() - t0
+    auto_launches = dict(kk.LAUNCHES)
+    auto_stages = bt.instrument.report()
+    check(counts, stats, "auto")
+    raw_batches = auto_stages.get("pad", {}).get("calls", 0)
+    kept = "device" if raw_batches > 1 else "packed"
+    log("[device-parse] " + json.dumps({
+        "wall_s": wall, "mkmers_per_s": stats["n_kmers"] / wall / 1e6,
+        "n_batches": n_batches, "launches": launches,
+        "h2d_bytes": stages["H2D"]["bytes"],
+        "h2d_bytes_packed": packed_stages["H2D"]["bytes"],
+        "device_busy_ms": prof.get("device_busy_ms"),
+        "device_idle_share": prof.get("device_idle_share"),
+        "peak_device_bytes": peak,
+        "auto": {"wall_s": auto_wall, "kept": kept,
+                 "raw_batches": raw_batches,
+                 "n_batches": auto_stages["dispatch"]["calls"],
+                 "launches": auto_launches},
+        "gpu": gpu_line()}))
+    return launches, auto_launches
+
+
+def phase_user_api(dev, variants, lengths):
+    """The user-level k-mer API over the motif job's reads (16 variants x
+    32 copies x 1000 reads) held as ONE EncodedRaggedArray: every call
+    must equal a numpy recount, and the three calls must upload the
+    array once.  Returns the kmer_keys launches of the three calls."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import resident
+    n_var = MOTIF_MEMBERS // COPIES
+    flat = np.concatenate([variants[v] for v in range(n_var)
+                           for _ in range(COPIES)])
+    all_lengths = np.tile(lengths, MOTIF_MEMBERS)
+    seqs = bt.EncodedRaggedArray(bt.EncodedArray(flat, bt.DNAEncoding),
+                                 all_lengths)
+    del flat
+    log(f"[user-api] {len(seqs)} reads, {int(all_lengths.sum())} bases in "
+        f"one EncodedRaggedArray")
+    torch.cuda.synchronize()
+    resident.reset_transfer_counters()
+    kk.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    c31 = timed("count_kmers_31", lambda: bt.count_kmers(seqs, 31,
+                                                         device=dev))
+    c12 = timed("count_kmers_12", lambda: bt.count_kmers(seqs, 12,
+                                                         device=dev))
+    g21 = timed("get_kmers_21", lambda: bt.get_kmers(seqs, 21, device=dev))
+    launches = dict(kk.LAUNCHES)
+    uploads = resident.TRANSFER_COUNT
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    own = variants[:n_var]
+    exp_h, exp_c = expected_table(own, lengths, COPIES, 31)
+    if not (np.array_equal(c31.label_codes, exp_h)
+            and np.array_equal(c31.counts, exp_c)):
+        raise AssertionError("count_kmers(s, 31) differs from the recount")
+    dense = np.zeros(4 ** 12, np.int64)
+    for codes in own:
+        dense += np.bincount(variant_hashes(codes, lengths, 12).astype(
+            np.int64), minlength=4 ** 12) * COPIES
+    if not (np.array_equal(c12.counts, dense) and len(c12.alphabet) ==
+            4 ** 12 and c12.counts.dtype == np.int64):
+        raise AssertionError("count_kmers(s, 12) differs from the recount")
+    per_variant = [variant_hashes(codes, lengths, 21).view(np.int64)
+                   for codes in own]
+    want = np.concatenate([per_variant[v] for v in range(n_var)
+                           for _ in range(COPIES)])
+    if not (np.array_equal(g21.ravel().raw(), want) and np.array_equal(
+            g21.lengths, np.maximum(all_lengths - 20, 0))):
+        raise AssertionError("get_kmers(s, 21) differs from the recount")
+    if uploads != 1:
+        raise AssertionError(f"{uploads} uploads for the three calls")
+    if launches["kmer_keys_kernel"] < 3:
+        raise AssertionError(f"kmer_keys_kernel launched "
+                             f"{launches['kmer_keys_kernel']} times in 3 "
+                             f"calls")
+    log(f"[user-api] exact: {len(c31.label_codes)} distinct 31-mers, "
+        f"{int(c12.counts.sum())} 12-mers, {len(want)} 21-mer windows; "
+        f"{uploads} upload of {resident.TRANSFER_BYTES} bytes")
+    log("[user-api] " + json.dumps({
+        "seconds": times, "launches": launches, "uploads": uploads,
+        "peak_device_bytes": peak, "gpu": gpu_line()}))
+    return launches
 
 
 def phase_checksum(dev, counts, variants, lengths):
@@ -739,12 +918,21 @@ def main() -> int:
     workdir = os.path.join(BUILD_DIR, "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        job_launches, counts, variants, lengths = phase_job(dev, workdir)
+        job_launches, counts, stats, stages, variants, lengths = phase_job(
+            dev, workdir)
+        parse_launches, auto_launches = phase_device_parse(
+            dev, workdir, counts, stats, stages)
         motif_launches = phase_motif(dev, workdir, variants, lengths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    api_launches = phase_user_api(dev, variants, lengths)
     sum_launches = phase_checksum(dev, counts, variants, lengths)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
+    rows[0]["launches_by_path"] = {
+        "job": job_launches["kmer_keys_kernel"],
+        "device_parse": parse_launches["kmer_keys_kernel"],
+        "device_parse_auto": auto_launches["kmer_keys_kernel"],
+        "user_api": api_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     print(json.dumps({"kernels": rows}))

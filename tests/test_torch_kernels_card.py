@@ -361,3 +361,95 @@ def test_pwm_card_tensor_never_takes_the_plain_version(cuda):
         pk.pwm_scores(words.to(cuda).to(torch.int64), matrix.to(cuda), 11)
     with pytest.raises(ValueError):
         pk.pwm_scores(words.to(cuda), matrix, 11)  # matrix on the host
+
+
+def _reads(seed, n_reads=300, max_len=250):
+    """Seeded reads of 0..max_len bases as strings."""
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list("ACGT"), n))
+            for n in rng.integers(0, max_len, n_reads)]
+
+
+def _fastq_bytes(reads):
+    return "".join(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n"
+                   for i, s in enumerate(reads)).encode()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 12, 13, 21, 31])
+def test_user_kmer_api_on_card_matches_cpu(cuda, k):
+    """get_kmers and count_kmers (dense k <= 12, sparse above) on the
+    card equal their device="cpu" results; the card run launches the
+    kmer_keys kernel once a call and uploads the array once."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import resident
+    seqs = bt.as_encoded_array(_reads(k), bt.DNAEncoding)
+    want_counts = bt.count_kmers(seqs, k, device="cpu")
+    want_kmers = bt.get_kmers(seqs, k, device="cpu")
+    resident.reset_transfer_counters()
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    got_counts = bt.count_kmers(seqs, k, device=cuda)
+    got_kmers = bt.get_kmers(seqs, k, device=cuda)
+    assert kk.LAUNCHES["kmer_keys_kernel"] == before + 2
+    assert resident.TRANSFER_COUNT == 1
+    assert got_counts == want_counts
+    np.testing.assert_array_equal(got_kmers.lengths, want_kmers.lengths)
+    np.testing.assert_array_equal(got_kmers.ravel().raw(),
+                                  want_kmers.ravel().raw())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ok", "non_acgt", "short_lines",
+                                  "no_plus"])
+def test_device_parse_ops_on_card_match_cpu(cuda, case):
+    """fastq_scan, fastq_to_kmer_counts and fastq_to_sparse_kmer_table on
+    the card equal their CPU results, well-formed or not."""
+    from bionumpy_tpu_torch.encodings import DNAEncoding
+    from bionumpy_tpu_torch.ops import parse
+    raw = _fastq_bytes(_reads(7, n_reads=200))
+    if case == "non_acgt":
+        raw = raw.replace(b"\nA", b"\nN", 1)
+    elif case == "short_lines":
+        raw += b"@\nA\n+\nI\n" * 4096
+    elif case == "no_plus":
+        raw = raw.replace(b"\n+\n", b"\n-\n", 1)
+    padded = np.zeros(1 << 17, np.uint8)
+    padded[: len(raw)] = np.frombuffer(raw, np.uint8)
+    max_lines = len(padded) // 16
+    lut = torch.from_numpy(DNAEncoding.lookup_table)
+    cpu = (torch.from_numpy(padded), lut)
+    card = tuple(t.to(cuda) for t in cpu)
+    for fn, args in ((parse.fastq_scan, (len(raw), max_lines)),
+                     (parse.fastq_to_kmer_counts,
+                      (len(raw), max_lines, 6, 4 ** 6)),
+                     (parse.fastq_to_sparse_kmer_table,
+                      (len(raw), max_lines, 31, 1 << 12))):
+        lead_cpu, lead_card = (cpu[:1], card[:1]) \
+            if fn is parse.fastq_scan else (cpu, card)
+        got, want = fn(*lead_card, *args), fn(*lead_cpu, *args)
+        flat_got = [t for part in got for t in
+                    (part if isinstance(part, tuple) else (part,))]
+        flat_want = [t for part in want for t in
+                     (part if isinstance(part, tuple) else (part,))]
+        for g, w in zip(flat_got, flat_want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [True, "auto", False])
+def test_count_kmers_fastq_on_card_matches_cpu(cuda, tmp_path, mode):
+    """The whole job on the card in each transport equals the CPU run;
+    the device transport launches kmer_keys once a batch."""
+    import gzip
+
+    from bionumpy_tpu_torch import pipeline
+    path = tmp_path / "reads.fq.gz"
+    path.write_bytes(b"".join(gzip.compress(_fastq_bytes(_reads(s)),
+                                            mtime=0) for s in range(6)))
+    kw = dict(k=31, cap=1 << 16, acc_cap=1 << 19, target_bases=20000,
+              device_parse=mode)
+    want = pipeline.count_kmers_fastq(str(path), device="cpu", **kw)
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    got = pipeline.count_kmers_fastq(str(path), device=cuda, **kw)
+    assert kk.LAUNCHES["kmer_keys_kernel"] > before
+    assert got[0] == want[0] and got[1] == want[1]

@@ -149,9 +149,7 @@ def test_zero_byte_file(tmp_path):
     assert got[1] == {"n_reads": 0, "n_bases": 0, "n_kmers": 0}
 
 
-@pytest.mark.parametrize("kw", [{"device_parse": True},
-                                {"device_parse": "device"},
-                                {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_raise(tmp_path, kw):
     path = tmp_path / "reads.fq"
     path.write_bytes(_fastq(5, 0))

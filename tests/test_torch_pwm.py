@@ -170,7 +170,7 @@ def test_pwm_scores_equal_jax():
     got = pwm.calculate_scores(seq)
     np.testing.assert_array_equal(got, jax_pwm.calculate_scores(seq))
     assert np.isneginf(got).any()
-    codes = pwm._encoding.encode(seq)
+    codes = pwm._encoding.encode(seq).raw()
     np.testing.assert_array_equal(pwm.calculate_scores(codes), got)
     window = seq[100:111]
     assert pwm.calculate_score(window) == jax_pwm.calculate_score(window)
