@@ -16,23 +16,37 @@ csrc/kmers.cu; the gzip-FASTQ motif scan to exact match positions
 through the hand-written kernel of csrc/pwm.cu; the encoded-array data
 model (EncodedArray, EncodedRaggedArray, as_encoded_array,
 change_encoding) with the k-mer API on it (get_kmers, count_kmers,
-count_encoded), whose arrays upload once per device (ops/resident.py).
+count_encoded), whose arrays upload once per device (ops/resident.py);
+on the same arrays, minimizers with the GC track (get_minimizers,
+count_minimizers, count_minimizers_with_gc, through kernel 1 and a
+windowed min) and motif scans (get_motif_scores, get_motif_matches,
+PositionWeightMatrix, read_motif, through the kernel of csrc/pwm.cu);
+and gzip-FASTQ -> minimizer counts (pipeline.count_minimizers_fastq).
 """
 from . import instrument
 from .encoded_array import (EncodedArray, EncodedRaggedArray,
                             as_encoded_array, change_encoding)
 from .encodings import DNAEncoding
 from .io.jaspar import read_jaspar_matrix
+from .io.motifs import read_motif
 from .ops.kmers import kmer_checksum_streamed
-from .pipeline import AccOverflow, count_kmers_fastq, get_motif_matches_fastq
+from .pipeline import (AccOverflow, count_kmers_fastq,
+                       count_minimizers_fastq, get_motif_matches_fastq)
 from .sequence.count_encoded import (EncodedCounts, SparseEncodedCounts,
                                      count_encoded)
 from .sequence.kmers import count_kmers, get_kmers
-from .sequence.position_weight_matrix import PWM
+from .sequence.minimizers import (Minimizers, count_minimizers,
+                                  count_minimizers_with_gc, get_minimizers)
+from .sequence.position_weight_matrix import (PWM, PositionWeightMatrix,
+                                              get_motif_matches,
+                                              get_motif_scores)
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
            "EncodedArray", "EncodedRaggedArray", "as_encoded_array",
            "change_encoding", "DNAEncoding", "get_kmers", "count_kmers",
            "EncodedCounts", "SparseEncodedCounts", "count_encoded",
+           "get_minimizers", "count_minimizers", "count_minimizers_with_gc",
+           "Minimizers", "get_motif_scores", "get_motif_matches",
+           "PositionWeightMatrix", "count_minimizers_fastq", "read_motif",
            "AccOverflow", "instrument"]

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 
 from .device import bucket_size, resolve_device
-from .kmer_kernels import SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys
+from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
+                           window_limbs_plain)
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
-           "pack_codes", "kmer_sorted_runs_packed", "sorted_runs_from_keys",
-           "counts_from_runs", "kmer_sentinel_table_packed",
+           "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
+           "sorted_runs_from_keys", "counts_from_runs", "kmer_sentinel_table_packed",
            "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
            "sparse_count_tables", "kmer_fullsum_packed",
            "kmer_checksum_streamed", "heads_first"]
@@ -58,6 +59,22 @@ def pack_codes(codes: torch.Tensor, n_positions: int) -> torch.Tensor:
     q = buf.view(-1, 4)
     packed = q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)
     return packed.view(torch.int32)
+
+
+def kmer_hash_limbs(codes_padded: torch.Tensor, k: int):
+    """(lo, hi) of the unmasked 2k-bit hash at every window start of a
+    code buffer: bits 0-31 and 32-63, as int64 tensors below 2^32 (the
+    JAX package returns them as uint32).  `codes_padded`: codes 0-3,
+    their count a multiple of 16 and at least 32 past the last base; the
+    result has len(codes_padded) - 32 positions.  Codes are packed as
+    pack_codes_host packs them, then hashed with kernel 1's limb
+    formulation (ops/kmer_kernels.window_limbs_plain): no kernel runs
+    here."""
+    n_positions = codes_padded.numel() - 2 * WORD_BASES
+    if n_positions < 0 or codes_padded.numel() % WORD_BASES:
+        raise ValueError("codes_padded needs a multiple of 16 codes, 32 of "
+                         "them past the last base")
+    return window_limbs_plain(pack_codes(codes_padded, n_positions), k)
 
 
 def heads_first(is_head: torch.Tensor, cap: int) -> torch.Tensor:

@@ -25,7 +25,9 @@ count_kmers_fastq on the same file.
 
 get_motif_matches_fastq streams the same batches through the motif scan
 (pwm_scores kernel + on-device match compaction, ops/pwm.py) and fetches
-only the match positions, one batch late.
+only the match positions, one batch late; count_minimizers_fastq streams
+them through the minimizer table (kmer_keys kernel + windowed min,
+ops/minimizers.py) and the same fold and fetch as the k-mer count.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from .io.pgzip import _inflate_segment, inflate_members, member_offsets
 from .ops.device import bucket_size, resolve_device
 from .ops.kmer_kernels import MAX_K
 from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
+from .ops.minimizers import minimizer_sentinel_table_packed
 from .ops.parse import fastq_to_sparse_kmer_table
 from .ops.pwm import pwm_match_compact, pwm_scores_packed
 from .parallel.sparse_parallel import merge_hash_tables
@@ -1191,6 +1194,123 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
     stats = {"n_reads": n_reads, "n_bases": n_bases,
              "n_matches": n_matches}
     return rows[order], offs[order], stats
+
+
+def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
+                           cap: int = 1 << 20,
+                           target_bases: int = TARGET_BUCKET - (1 << 21),
+                           mesh=None, n_threads: int = None,
+                           acc_cap: int = None, device=None):
+    """Count the minimizers (the least k-mer hash of each window of
+    `window_size` bases, one count per window) of a FASTQ file, plain or
+    (multi-member) gzip, on one device: each packed batch's minimizer
+    table (kernel 1, the windowed min, sort and compaction,
+    ops/minimizers.py) folds into a device accumulator, the batches'
+    metas fold on the device, and the host fetches the accumulator's
+    live rows once at the end.
+
+    `device`: None is the card ("cuda"), which must be present; pass
+    "cpu" to run the plain versions on the host.  `cap` bounds the
+    distinct minimizers of one batch's table; a batch that overflows it
+    makes the whole job rerun once at a cap that fits.  `acc_cap`
+    (default max(4*cap, 2^22)) bounds the job's distinct minimizers
+    (AccOverflow).  `mesh=` (multi-device) is not ported yet.
+
+    Returns a SparseEncodedCounts over the DNA k-mer encoding plus a
+    stats dict {n_reads, n_bases, n_windows}; equal to the JAX package's
+    count_minimizers_fastq on the same file."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
+            "multi-device)")
+    if not 1 <= k <= MAX_K or k > window_size:
+        raise ValueError(f"k must lie in 1..{MAX_K} and be at most "
+                         f"window_size={window_size}, got {k}")
+    device = resolve_device(device)
+    if n_threads is None:
+        n_threads = min(8, os.cpu_count() or 1)
+    if acc_cap is None:
+        acc_cap = max(4 * cap, 1 << 22)
+    n_kmers = window_size - k + 1
+    acc = _make_acc(acc_cap, device)
+    meta_acc = _meta_init(device)
+    in_flight = deque()  # (event, host arrays) per batch on the card
+    n_reads = n_bases = n_batches = 0
+
+    def launch(parsed):
+        nonlocal acc, n_reads, n_bases, n_batches
+        words, ends, nb, nr = parsed
+        with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+            words_d = torch.from_numpy(words.view(np.int32)).to(
+                device, non_blocking=True)
+            ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
+        with stage("dispatch"):
+            keys, cnt, meta = minimizer_sentinel_table_packed(
+                words_d, ends_d, nb, k, n_kmers, cap)
+            _meta_add_packed(meta_acc, meta)
+        with stage("device-fold"):
+            acc = _fold_program_impl(acc, [(keys, cnt)], acc_cap)
+        if device.type == "cuda":
+            # the asynchronous copies read the host arrays: keep them
+            # until the batch's work is done, _IN_FLIGHT batches at most
+            event = torch.cuda.Event()
+            event.record()
+            in_flight.append((event, words, ends))
+            while len(in_flight) > _IN_FLIGHT:
+                with stage("backpressure"):
+                    in_flight.popleft()[0].synchronize()
+        n_reads += nr
+        n_bases += nb
+        n_batches += 1
+
+    pool = ThreadPoolExecutor(n_threads)
+    worker = ThreadPoolExecutor(1)
+    try:
+        # the worker parses batch i+1 while batch i launches
+        parsed = None
+        for raw in _prefetched(_batch_arrays(path, target_bases, pool)):
+            nxt = worker.submit(_parse_batch, raw)
+            if parsed is not None:
+                launch(parsed.result())
+            parsed = nxt
+        if parsed is not None:
+            launch(parsed.result())
+    finally:
+        worker.shutdown(wait=False)
+        pool.shutdown(wait=False)
+
+    if n_batches == 0:
+        return SparseEncodedCounts(
+            KmerEncoding(DNAEncoding, k), np.empty(0, np.uint64),
+            np.empty(0, np.int64)), \
+            {"n_reads": 0, "n_bases": 0, "n_windows": 0}
+
+    def rerun(max_unique):
+        # a batch's table was truncated: redo the job ONCE at a cap that
+        # fits (the meta carries every batch's true distinct count)
+        new_cap = 1 << (max_unique - 1).bit_length()
+        logger.warning(
+            "count_minimizers_fastq: batch table overflow (%d > cap=%d); "
+            "rerunning at cap=%d", max_unique, cap, new_cap)
+        return count_minimizers_fastq(
+            path, k, window_size, cap=new_cap, target_bases=target_bases,
+            n_threads=n_threads, device=device,
+            acc_cap=max(acc_cap, 4 * new_cap))
+
+    try:
+        with stage("D2H-table"):
+            hashes, counts, meta_h = _fetch_acc(acc, acc_cap, meta_acc)
+    except AccOverflow as e:
+        if int(e.meta_h[0]) > cap:
+            return rerun(int(e.meta_h[0]))
+        raise
+    meta = dict(zip(META_FIELDS, (int(v) for v in meta_h)))
+    if meta["max_unique"] > cap:
+        return rerun(meta["max_unique"])
+    stats = {"n_reads": n_reads, "n_bases": n_bases,
+             "n_windows": meta["n_kmers"]}
+    return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
+                               counts), stats
 
 
 def merge_sorted_tables(h1, c1, h2, c2):

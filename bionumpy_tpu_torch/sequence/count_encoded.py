@@ -20,6 +20,18 @@ from ..encoded_array import EncodedArray, EncodedRaggedArray
 from ..ragged import RaggedArray
 
 
+def _same_labels(a, b) -> bool:
+    """Label sequences compare by their items, so a range of label codes
+    (the port's dense k-mer counts for k > 8) equals the list of the same
+    ints that the JAX package builds; two ranges compare without
+    materializing either."""
+    if isinstance(a, range) and isinstance(b, range):
+        return a == b
+    if isinstance(a, range) or isinstance(b, range):
+        return len(a) == len(b) and list(a) == list(b)
+    return a == b
+
+
 class EncodedCounts:
     def __init__(self, alphabet, counts, row_names=None):
         self.alphabet = alphabet
@@ -35,7 +47,7 @@ class EncodedCounts:
                 f"counts={self.counts!r}, row_names={self.row_names!r})")
 
     def __eq__(self, other):
-        if self.alphabet != other.alphabet:
+        if not _same_labels(self.alphabet, other.alphabet):
             return False
         return bool(np.all(self.counts == other.counts))
 
@@ -45,7 +57,7 @@ class EncodedCounts:
     def _other_counts(self, other):
         if isinstance(other, Number):
             return other
-        assert self.alphabet == other.alphabet
+        assert _same_labels(self.alphabet, other.alphabet)
         return other.counts
 
     def __add__(self, other):
@@ -86,7 +98,7 @@ class EncodedCounts:
     @classmethod
     def vstack(cls, counts):
         alphabet = counts[0].alphabet
-        assert all(c.alphabet == alphabet for c in counts)
+        assert all(_same_labels(c.alphabet, alphabet) for c in counts)
         ret = cls(alphabet,
                   np.array([c.counts for c in counts], dtype="int"))
         if counts[0].row_names is not None:

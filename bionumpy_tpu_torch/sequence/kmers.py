@@ -190,7 +190,8 @@ def _device_count_kmers(sequence, k: int, device=None) -> EncodedCounts:
                                      ds.n).cpu().numpy()
     encoding = KmerEncoding(sequence.encoding, k)
     # the JAX package lists range(4**k) for k > 8; a range holds the same
-    # labels without 4^k Python ints (16.7 M at k = 12)
+    # labels without 4^k Python ints (16.7 M at k = 12) and compares, adds
+    # and stacks with that list (count_encoded._same_labels)
     alphabet = encoding.get_labels() if k <= 8 else range(4 ** k)
     return EncodedCounts(alphabet, counts)
 

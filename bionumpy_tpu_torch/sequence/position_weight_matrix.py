@@ -1,11 +1,17 @@
-"""Position weight matrices (the port's copy of the PWM class of
-bionumpy_tpu/sequence/position_weight_matrix.py:17-97).
+"""Position weight matrices and motif scans (the port of
+bionumpy_tpu/sequence/position_weight_matrix.py; reference:
+bionumpy/sequence/position_weight_matrix.py).
 
-A sequence is a `str` over the PWM's alphabet or a numpy array of its
-codes; encoded and ragged arrays (get_motif_scores and the like) are still
-to be ported.  The scans
-over whole files run on the card through pipeline.get_motif_matches_fastq;
-the host methods here score in float64, as the JAX package's do.
+A sequence is an encoded array (flat or ragged), a `str` over the PWM's
+alphabet, or a numpy array of its codes.  The host methods score in
+float64, as the JAX package's do.  get_motif_scores on a ragged array of
+more than 2^15 bases and get_motif_matches run on a device (`device`:
+None is the card, which must be present; "cpu" runs the plain versions):
+for a 4-letter alphabet through pwm_scores_kernel (ops/pwm_kernels.py)
+over the array's resident packed words (ops/resident.py, the upload
+shared with the k-mer and minimizer calls), else over its codes
+(ops/pwm.pwm_scores).  The scans over whole files run through
+pipeline.get_motif_matches_fastq.
 """
 from __future__ import annotations
 
@@ -13,8 +19,13 @@ import typing
 from typing import Dict
 
 import numpy as np
+import torch
 
+from ..encoded_array import (EncodedArray, EncodedRaggedArray,
+                             as_encoded_array)
 from ..encodings import AlphabetEncoding, EncodingError
+from ..ragged import RaggedArray, RaggedShape
+from .rollable import RollableFunction
 
 
 def _pwm_from_counts(count_matrix):
@@ -44,32 +55,42 @@ class PWM:
     def window_size(self) -> int:
         return self._matrix.shape[-1]
 
-    def _codes(self, sequence) -> np.ndarray:
-        """Codes of a str over the alphabet, or a validated code array."""
-        if isinstance(sequence, str):
-            try:
-                return self._encoding.encode(sequence).raw()
-            except EncodingError as err:
-                raise ValueError(err.message) from err
-        if isinstance(sequence, np.ndarray) and sequence.dtype.kind in "iu":
+    def as_valid_encoded_array(self, sequence):
+        """The sequence as an array encoded over this PWM's alphabet: an
+        alphabet-encoded array whose alphabet starts with the PWM's (and
+        whose codes stay inside it) as it is, a code array wrapped, and
+        anything else encoded."""
+        if isinstance(sequence, (EncodedArray, EncodedRaggedArray)):
+            if isinstance(sequence.encoding, AlphabetEncoding):
+                alphabet = list(sequence.encoding.get_alphabet())
+                own = list(self._alphabet)
+                raw = sequence.raw()
+                flat = raw.ravel() if isinstance(raw, RaggedArray) else raw
+                max_code = int(np.max(np.asarray(flat), initial=0))
+                if alphabet[: len(own)] != own or max_code >= len(own):
+                    raise ValueError(
+                        f"Cannot calculate pwm for alphabet {own} on "
+                        f"{alphabet}-encoded array")
+                return sequence
+        elif isinstance(sequence, np.ndarray) and sequence.dtype.kind in "iu":
             if sequence.size and (int(sequence.min()) < 0 or int(
                     sequence.max()) >= len(self._alphabet)):
                 raise ValueError(f"codes outside alphabet {self._alphabet}")
-            return sequence
-        raise NotImplementedError(
-            "encoded and ragged sequence arrays are not ported yet (ROADMAP "
-            "queue 1 item 9, with the encoded-array API); pass a str or an "
-            "integer code array")
+            return EncodedArray(sequence, self._encoding)
+        try:
+            return as_encoded_array(sequence, self._encoding)
+        except EncodingError as err:
+            raise ValueError(err.message) from err
 
     def calculate_score(self, sequence):
-        codes = self._codes(sequence)
-        assert codes.shape[-1] == self.window_size
-        return self._matrix[codes, self._indices].sum(axis=-1)
+        sequence = self.as_valid_encoded_array(sequence)
+        assert sequence.shape[-1] == self.window_size
+        return self._matrix[sequence.raw(), self._indices].sum(axis=-1)
 
     def calculate_scores(self, sequence) -> np.ndarray:
         """Scores at every flat position; windows running off the end get
         partial sums, as in the JAX package."""
-        codes = self._codes(sequence)
+        codes = np.asarray(self.as_valid_encoded_array(sequence).raw())
         scores = np.zeros(codes.size, dtype=float)
         for offset, row in enumerate(self._matrix.T):
             scores[: scores.size - offset] += row[codes[offset:]]
@@ -96,3 +117,138 @@ class PWM:
         return ("PWM with alphabet " + self._alphabet + "\n" +
                 "\n".join(" ".join(str(round(c, 2)) for c in row)
                           for row in matrix))
+
+
+class PositionWeightMatrix(RollableFunction):
+    def __init__(self, pwm: PWM):
+        self._pwm = pwm
+        self._encoding = pwm._encoding
+        self.window_size = pwm.window_size
+
+    def __call__(self, sequence):
+        return self._pwm.calculate_score(sequence)
+
+
+def _packed_scores(ds, pwm: PWM) -> torch.Tensor:
+    """float32 scores of every position of a resident 4-letter array:
+    pwm_scores_kernel for windows up to its 32, the codes scan beyond."""
+    from ..ops import pwm_kernels
+    from ..ops.pwm import pwm_scores
+
+    w = pwm.window_size
+    matrix = np.zeros((4, w), np.float32)
+    matrix[: pwm.matrix.shape[0]] = pwm.matrix  # codes stay below the rows
+    matrix_d = torch.from_numpy(matrix).to(ds.words.device)
+    if w <= pwm_kernels.MAX_WINDOW:
+        return pwm_kernels.pwm_scores(ds.words, matrix_d, w)
+    codes = pwm_kernels.unpack_codes(ds.words)
+    return pwm_scores(codes, matrix_d, w)[: ds.n_positions]
+
+
+def _four_letters(sequence, pwm: PWM) -> bool:
+    return pwm.matrix.shape[0] <= 4 and \
+        getattr(sequence.encoding, "alphabet_size", 0) == 4
+
+
+def _device_motif_scores(sequence: EncodedRaggedArray, pwm: PWM,
+                         device=None) -> np.ndarray:
+    """float32 scores of every flat position, computed on the device and
+    returned as float64."""
+    from ..ops.device import bucket_size, resolve_device
+    from ..ops.pwm import pwm_scores
+    from ..ops.resident import device_seqs
+
+    if _four_letters(sequence, pwm):
+        ds = device_seqs(sequence, device)
+        return _packed_scores(ds, pwm)[: ds.n].cpu().numpy().astype(float)
+    device = resolve_device(device)
+    flat = np.asarray(sequence.ravel().raw())
+    n = len(flat)
+    codes = np.zeros(bucket_size(n + pwm.window_size, 1 << 14), np.uint8)
+    codes[:n] = flat
+    scores = pwm_scores(torch.from_numpy(codes).to(device),
+                        torch.from_numpy(pwm.matrix.astype(np.float32)).to(
+                            device), pwm.window_size)
+    return scores[:n].cpu().numpy().astype(float)
+
+
+def get_motif_matches(sequence, pwm: PWM, threshold: float,
+                      cap: int = 1 << 20, device=None) -> RaggedArray:
+    """Within-row positions whose motif score (float32) exceeds
+    `threshold`, for a 4-letter alphabet: the scores never leave the
+    device, and the match positions are compacted there, so the copy to
+    the host holds the matches only.  A scan with more than `cap`
+    matches is compacted again at twice the cap until they fit.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> import bionumpy_tpu_torch as bnp
+    >>> pwm = bnp.PWM.from_dict({"A": [0.8, 0.1], "C": [0.1, 0.8],
+    ...                          "G": [0.05, 0.05], "T": [0.05, 0.05]})
+    >>> m = bnp.get_motif_matches(
+    ...     bnp.as_encoded_array(["TTACTT", "ACAC"], bnp.DNAEncoding),
+    ...     pwm, threshold=1.0, device="cpu")
+    >>> [[int(x) for x in np.asarray(row)] for row in m]
+    [[2], [0, 2]]
+    """
+    from ..ops.pwm import pwm_match_compact
+    from ..ops.resident import device_seqs
+
+    sequence = pwm.as_valid_encoded_array(as_encoded_array(sequence))
+    if isinstance(sequence, EncodedArray):
+        sequence = EncodedRaggedArray(sequence, [len(sequence)])
+    if pwm.matrix.shape[0] != 4 or not _four_letters(sequence, pwm):
+        raise ValueError("device motif matching needs a 4-letter alphabet")
+    ds = device_seqs(sequence, device)
+    scores = _packed_scores(ds, pwm)
+    while True:
+        positions, n_matches = pwm_match_compact(
+            scores, ds.ends, ds.n, threshold, pwm.window_size,
+            min(cap, ds.n_positions))
+        n = int(n_matches)
+        if n <= cap or cap >= ds.n_positions:
+            break
+        cap *= 2
+    flat = positions[:n].cpu().numpy()
+    starts = np.insert(np.cumsum(ds.lengths), 0, 0)
+    row = np.searchsorted(starts, flat, side="right") - 1
+    lengths = np.bincount(row, minlength=len(ds.lengths))
+    return RaggedArray((flat - starts[row]).astype(np.int64), lengths)
+
+
+def get_motif_scores(sequence, pwm: PWM, device=None) -> RaggedArray:
+    """Log-likelihood motif score of every window that fits its sequence
+    (reference: bionumpy/sequence/position_weight_matrix.py:166-196):
+    each row has length L - w + 1.  A ragged array of more than 2^15
+    bases is scored on the device in float32 and returned as float64;
+    smaller ones and flat arrays on the host in float64, as in the JAX
+    package, so both return the same floats.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> import bionumpy_tpu_torch as bnp
+    >>> pwm = bnp.PWM.from_dict({"A": [0.4, 0.25], "C": [0.2, 0.25],
+    ...                          "G": [0.2, 0.25], "T": [0.2, 0.25]})
+    >>> scores = bnp.get_motif_scores(
+    ...     bnp.as_encoded_array(["ACGT"], bnp.DNAEncoding), pwm)
+    >>> np.round(np.asarray(scores.ravel()), 3)
+    array([ 0.47 , -0.223, -0.223])
+    """
+    sequence = pwm.as_valid_encoded_array(as_encoded_array(sequence))
+    if not isinstance(sequence, EncodedRaggedArray):
+        scores = pwm.calculate_scores(sequence)
+        if pwm.window_size == 1:
+            return scores
+        return scores[: -pwm.window_size + 1]
+    # -inf cells flow through the device sums exactly: -inf + finite is
+    # -inf, and no path forms inf - inf
+    if sequence.size > (1 << 15):
+        scores = _device_motif_scores(sequence, pwm, device)
+    else:
+        scores = pwm.calculate_scores(sequence.ravel())
+    ragged = RaggedArray(scores, RaggedShape(sequence.lengths))
+    if pwm.window_size == 1:
+        return ragged
+    return ragged[:, : -pwm.window_size + 1]

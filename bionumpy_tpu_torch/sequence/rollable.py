@@ -31,11 +31,13 @@ class RollableFunction:
         flat = _sequence.ravel() if is_ragged else _sequence
         raw = flat.raw() if hasattr(flat, "raw") else np.asarray(flat)
         if mode == "valid":
-            if len(raw) < window_size:
-                windows = raw[np.zeros((0, window_size), dtype=np.int64)]
+            if raw.shape[-1] < window_size:
+                windows = raw[..., np.zeros((0, window_size), np.int64)]
             else:
+                # along the last axis, so an array of windows (Minimizers)
+                # rolls each window; the JAX package's copy takes 1-D only
                 windows = np.lib.stride_tricks.sliding_window_view(
-                    raw, window_size)
+                    raw, window_size, axis=-1)
         elif mode == "same":
             padded = np.append(raw,
                                np.zeros(window_size - 1, dtype=raw.dtype))

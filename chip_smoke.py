@@ -9,9 +9,10 @@ count) table, on the benchmark's headline job (2048 gzip members, ~446 M
 bases, 2.048 M reads, generated from a seed), over host-packed words and
 over raw bytes parsed on the card; gzip FASTQ -> exact PWM match
 positions, on the motif job's shape (the first 512 members of the same
-file, ~111 M bases); and the user-level k-mer API over the motif job's
-reads as one EncodedRaggedArray.  Phases, each of which raises on
-failure:
+file, ~111 M bases); gzip FASTQ -> exact minimizer table over the same
+file; the user-level k-mer and motif API over the motif job's reads as
+one EncodedRaggedArray; and bench config 3's minimizer + GC-track job
+over 97 M seeded bases.  Phases, each of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -56,6 +57,25 @@ failure:
   8. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
                with the table's sums; prints its wall and, from one more
                profiled run, the device time of its fullsum launches
+  9. minimizers-fastq  count_minimizers_fastq(k=21, window 30) over the
+               phase 4 file: warm-up, timed and profiled runs; the table
+               must equal a numpy recount of the 64 variants times their
+               copies, the stats the file's, and kmer_keys must have
+               launched once per batch
+ 10. motif-encoded  get_motif_matches and get_motif_scores on phase 7's
+               array: the matches must equal phase 5's, the first
+               variant's scores its float32 recount, and the array must
+               still count one upload
+ 11. minimizers-gc  config 3's job: count_minimizers_with_gc(k=21,
+               window 30, cap 2^22, 1000-base bins) over 8 seeded strains
+               of sacCer3's shape (136 rows, 97.3 M bases); warm-up, a
+               timed run that uploads again and one with n_chunks=4,
+               each profiled once more; table and bins must equal a
+               numpy recount, each base must be uploaded once a run and
+               kmer_keys must have launched; prints the wall, Mbases/s,
+               device busy time, idle share and peak device memory
+
+Each phase prints its seconds ("[phase] ...").
 
 It prints a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}.  Without a card it exits non-zero and
@@ -92,6 +112,14 @@ MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s non-tensor float32 peak stands in for 32-bit integer ops
 INT_OPS_PER_S = 67e12
 SENTINEL = (1 << 63) - 1
+# config 3: sacCer3's 17 chromosome lengths (UCSC sacCer3.chrom.sizes, in
+# chrI..chrXVI, chrM order), seeded bases, 7 strain copies with 0.1%
+# substitutions as bench.py makes them; k = 21, 10 k-mers per window
+SACCER3_SIZES = (230218, 813184, 316620, 1531933, 576874, 270161, 1090940,
+                 562643, 439888, 745751, 666816, 1078177, 924431, 784333,
+                 1091291, 948066, 85779)
+N_STRAINS = 8
+MIN_K, MIN_WINDOW, GC_BIN = 21, 30, 1000
 
 
 def log(msg: str) -> None:
@@ -173,6 +201,71 @@ def expected_table(variants, lengths, copies: int, k: int):
         [variant_hashes(codes, lengths, k) for codes in variants]),
         return_counts=True)
     return uniq, counts.astype(np.int64) * copies
+
+
+def numpy_kmer_hashes(flat: np.ndarray, k: int) -> np.ndarray:
+    """uint64 hash sum(code_j << 2j) of the k-mer at every start 0..n-k,
+    composed from hashes of power-of-two lengths (one shift-or pass per
+    doubling and per set bit of k, not k passes)."""
+    powers = {1: flat.astype(np.uint64)}
+    p = 1
+    while 2 * p <= k:
+        h = powers[p]
+        powers[2 * p] = h[:-p] | (h[p:] << np.uint64(2 * p))
+        p *= 2
+    n = len(flat) - k + 1
+    out, offset = None, 0
+    for p in sorted(powers, reverse=True):
+        if k - offset >= p:
+            part = powers[p][offset: offset + n] << np.uint64(2 * offset)
+            out = part if out is None else out | part
+            offset += p
+    return out
+
+
+def numpy_minimizer_windows(flat, lengths, k: int, window: int):
+    """uint64 minimizer of every window of `window` bases that fits its
+    row, in position order: the least k-mer hash over the window's
+    window - k + 1 k-mers (bench.numpy_minimizer_job's semantics, with a
+    doubling min in place of its per-row loop)."""
+    m = numpy_kmer_hashes(flat, k)
+    span, n_kmers = 1, window - k + 1
+    while span < n_kmers:
+        step = min(span, n_kmers - span)
+        m = np.minimum(m[:-step], m[step:])
+        span += step
+    ends = np.cumsum(lengths)
+    dist = np.repeat(ends, lengths) - np.arange(len(flat))
+    return m[dist[: len(m)] >= window]
+
+
+def numpy_minimizer_table(flat, lengths, k: int, window: int):
+    """Exact (hashes uint64, counts int64) of the minimizers: the windows'
+    values cut into runs of equal neighbours (a minimizer holds for
+    ~window/2 windows), then the runs' values counted by their lengths."""
+    v = numpy_minimizer_windows(flat, lengths, k, window)
+    heads = np.flatnonzero(np.concatenate([[True], v[1:] != v[:-1]]))
+    run_len = np.diff(np.append(heads, len(v)))
+    uniq, inverse = np.unique(v[heads], return_inverse=True)
+    counts = np.bincount(inverse, weights=run_len, minlength=len(uniq))
+    return uniq, counts.astype(np.int64)
+
+
+def strain_genome(seed: int):
+    """Config 3's input: a seeded base genome of sacCer3's chromosome
+    lengths and N_STRAINS - 1 copies of it with 0.1% seeded
+    substitutions (bench.py's strains), as (flat codes, row lengths)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, sum(SACCER3_SIZES)).astype(np.uint8)
+    strains = [base]
+    for v in range(1, N_STRAINS):
+        vrng = np.random.default_rng(2000 + v)
+        mut = base.copy()
+        pos = np.flatnonzero(vrng.random(len(mut)) < 0.001)
+        mut[pos] = (mut[pos] + vrng.integers(1, 4, len(pos))) % 4
+        strains.append(mut)
+    return (np.concatenate(strains),
+            np.tile(np.array(SACCER3_SIZES, np.int64), N_STRAINS))
 
 
 # ---- timing ---------------------------------------------------------------
@@ -664,7 +757,7 @@ def phase_motif(dev, workdir: str, variants, lengths):
     log(f"[motif] split: {bt.instrument.summary(total=wall)}")
     log("[motif] stages: " + json.dumps(bt.instrument.report()))
     profile_job(run, "motif")
-    return launches
+    return launches, (pwm, threshold, rows, offs)
 
 
 def device_times(run):
@@ -858,7 +951,209 @@ def phase_user_api(dev, variants, lengths):
     log("[user-api] " + json.dumps({
         "seconds": times, "launches": launches, "uploads": uploads,
         "peak_device_bytes": peak, "gpu": gpu_line()}))
+    return launches, seqs
+
+
+def phase_motif_encoded(dev, seqs, motif, variants, lengths):
+    """The motif scans on phase 7's array (the same 512 members phase 5
+    scanned, as one EncodedRaggedArray): get_motif_matches must give
+    phase 5's (read, offset) matches, get_motif_scores the first
+    variant's float32 window scores (numpy_pwm_windows, the kernel's add
+    order) as float64, and the array must still count one upload; the
+    two calls once more under the profiler.  Returns the pwm_scores
+    launches of the two timed calls."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.ops import resident
+    pwm, threshold, exp_rows, exp_offs = motif
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {}
+    t0 = time.perf_counter()
+    matches = bt.get_motif_matches(seqs, pwm, threshold, device=dev)
+    torch.cuda.synchronize()
+    times["get_motif_matches"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = bt.get_motif_scores(seqs, pwm, device=dev)
+    torch.cuda.synchronize()
+    times["get_motif_scores"] = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = np.repeat(np.arange(len(matches)), matches.lengths)
+    if not (np.array_equal(rows, exp_rows)
+            and np.array_equal(np.asarray(matches.ravel()), exp_offs)):
+        raise AssertionError("get_motif_matches differs from phase 5's "
+                             "matches")
+    w = pwm.window_size
+    ref, inside = numpy_pwm_windows(variants[0], lengths,
+                                    pwm.matrix.astype(np.float32))
+    first = np.asarray(scores[:N_READS].ravel())
+    if not (np.array_equal(first, ref[inside].astype(np.float64))
+            and first.dtype == np.float64 and np.array_equal(
+                scores.lengths, np.maximum(seqs.lengths - w + 1, 0))):
+        raise AssertionError("get_motif_scores differs from the recount")
+    if resident.TRANSFER_COUNT != 1:
+        raise AssertionError(f"{resident.TRANSFER_COUNT} uploads of phase "
+                             f"7's array")
+    if launches["pwm_scores_kernel"] < 2:
+        raise AssertionError(f"pwm_scores_kernel launched "
+                             f"{launches['pwm_scores_kernel']} times in 2 "
+                             f"calls")
+    prof = profile_job(lambda: (
+        bt.get_motif_matches(seqs, pwm, threshold, device=dev),
+        bt.get_motif_scores(seqs, pwm, device=dev)), "motif-encoded")
+    log(f"[motif-encoded] exact: {len(rows)} matches equal phase 5's, "
+        f"{len(first)} window scores of variant 0 bit-equal; still "
+        f"{resident.TRANSFER_COUNT} upload")
+    log("[motif-encoded] " + json.dumps({
+        "seconds": times, "launches": launches,
+        "device_busy_ms": prof.get("device_busy_ms"),
+        "device_idle_share": prof.get("device_idle_share"),
+        "peak_device_bytes": peak, "gpu": gpu_line()}))
     return launches
+
+
+def phase_minimizers_fastq(dev, workdir: str, variants, lengths):
+    """count_minimizers_fastq over phase 4's file: warm-up, timed and
+    profiled runs; the table must equal a numpy recount of the 64
+    variants times their copies, the stats the file's, and kmer_keys must
+    have launched once per batch.  Returns the timed run's launches."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    path = os.path.join(workdir, "job.fq.gz")
+    t0 = time.perf_counter()
+    exp_h, exp_c = numpy_minimizer_table(
+        np.concatenate(variants), np.tile(lengths, len(variants)), MIN_K,
+        MIN_WINDOW)
+    exp_c = exp_c * COPIES
+    log(f"[minimizers-fastq] numpy recount {len(exp_h)} distinct in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run():
+        return bt.count_minimizers_fastq(path, MIN_K, MIN_WINDOW,
+                                         device=dev)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    log(f"[minimizers-fastq] warm-up run {time.perf_counter() - t0:.2f} s")
+    bt.instrument.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    counts, stats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kk.LAUNCHES)
+    stages = bt.instrument.report()
+    n_batches = stages["dispatch"]["calls"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (np.array_equal(counts.label_codes, exp_h)
+            and np.array_equal(counts.counts, exp_c)):
+        raise AssertionError("the minimizer table differs from the recount")
+    want_stats = {"n_reads": N_VARIANTS * COPIES * N_READS,
+                  "n_bases": N_VARIANTS * COPIES * int(lengths.sum()),
+                  "n_windows": int(exp_c.sum())}
+    if stats != want_stats:
+        raise AssertionError(f"stats {stats} != the file's {want_stats}")
+    if launches["kmer_keys_kernel"] != n_batches:
+        raise AssertionError(f"kmer_keys_kernel launched "
+                             f"{launches['kmer_keys_kernel']} times for "
+                             f"{n_batches} batches")
+    log(f"[minimizers-fastq] exact: {stats}, {len(exp_h)} distinct, "
+        f"{n_batches} batches")
+    log(f"[minimizers-fastq] split: {bt.instrument.summary(total=wall)}")
+    prof = profile_job(run, "minimizers-fastq")
+    log("[minimizers-fastq] " + json.dumps({
+        "wall_s": wall, "mbases_per_s": stats["n_bases"] / wall / 1e6,
+        "n_batches": n_batches, "launches": launches,
+        "device_busy_ms": prof.get("device_busy_ms"),
+        "device_idle_share": prof.get("device_idle_share"),
+        "peak_device_bytes": peak, "gpu": gpu_line()}))
+    return launches
+
+
+def phase_minimizers_gc(dev):
+    """Config 3's job: count_minimizers_with_gc(k=21, window 30, cap 2^22,
+    1000-base GC bins) over 8 seeded strains of sacCer3's shape, as one
+    EncodedRaggedArray; warm-up, a timed run that uploads again, then
+    one with n_chunks=4, each profiled once more.  Table and bins must
+    equal a numpy recount; each run must upload each base once and
+    launch kmer_keys.  Returns the launches of the timed and the chunked
+    run."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import resident
+    t0 = time.perf_counter()
+    flat, lengths = strain_genome(SEED)
+    seqs = bt.EncodedRaggedArray(bt.EncodedArray(flat, bt.DNAEncoding),
+                                 lengths)
+    n_bases = len(flat)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp_h, exp_c = numpy_minimizer_table(flat, lengths, MIN_K, MIN_WINDOW)
+    exp_gc = np.add.reduceat(((flat == 1) | (flat == 2)).astype(np.int32),
+                             np.arange(0, n_bases, GC_BIN))
+    recount = time.perf_counter() - t0
+    log(f"[minimizers-gc] {len(lengths)} rows, {n_bases} bases (made in "
+        f"{made:.1f} s); numpy recount {len(exp_h)} distinct, "
+        f"{len(exp_gc)} bins in {recount:.1f} s")
+
+    def run(n_chunks=1):
+        resident.invalidate(seqs)  # every run uploads, as bench.py's
+        # chunk_cap = cap: a chunk holds two strains, ~2.7 M distinct
+        # minimizers, past the default chunk_cap (2^21) that would make
+        # the chunks run twice
+        return bt.count_minimizers_with_gc(seqs, MIN_K, MIN_WINDOW,
+                                           cap=1 << 22, bin_size=GC_BIN,
+                                           n_chunks=n_chunks,
+                                           chunk_cap=1 << 22, device=dev)
+
+    def check(out, tag):
+        table, gc = out
+        if not (np.array_equal(table.label_codes, exp_h)
+                and np.array_equal(table.counts, exp_c)):
+            raise AssertionError(f"the {tag} minimizer table differs from "
+                                 f"the recount")
+        if not (np.array_equal(gc, exp_gc) and gc.dtype == np.int32):
+            raise AssertionError(f"the {tag} GC bins differ from the "
+                                 f"recount")
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    log(f"[minimizers-gc] warm-up run {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for n_chunks in (1, 4):
+        resident.reset_transfer_counters()
+        kk.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = run(n_chunks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(result, f"n_chunks={n_chunks}")
+        launches = dict(kk.LAUNCHES)
+        if launches["kmer_keys_kernel"] < 1:
+            raise AssertionError("kmer_keys_kernel never launched")
+        if resident.TRANSFER_COUNT != n_chunks:
+            raise AssertionError(f"{resident.TRANSFER_COUNT} uploads for "
+                                 f"{n_chunks} chunk(s)")
+        out[n_chunks] = {
+            "wall_s": wall, "mbases_per_s": n_bases / wall / 1e6,
+            "launches": launches, "uploads": resident.TRANSFER_COUNT,
+            "upload_bytes": resident.TRANSFER_BYTES,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+        out[n_chunks].update(profile_job(lambda n=n_chunks: run(n),
+                                         f"minimizers-gc-{n_chunks}"))
+    log(f"[minimizers-gc] exact: {len(exp_h)} distinct minimizers, "
+        f"{int(exp_c.sum())} windows, {len(exp_gc)} GC bins, whole and in "
+        f"4 chunks")
+    log("[minimizers-gc] " + json.dumps({
+        "whole": out[1], "chunks_4": out[4], "recount_s": recount,
+        "gpu": gpu_line()}))
+    return out[1]["launches"], out[4]["launches"]
 
 
 def phase_checksum(dev, counts, variants, lengths):
@@ -902,6 +1197,14 @@ def phase_checksum(dev, counts, variants, lengths):
     return launches
 
 
+def run_phase(name: str, phase, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import bionumpy_tpu_torch  # noqa: F401  (fails outside a checkout)
     if not torch.cuda.is_available():
@@ -912,29 +1215,46 @@ def main() -> int:
         f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(gpu_line())
-    phase_build()
-    rows = phase_kernels(dev)
+    run_phase("build", phase_build)
+    rows = run_phase("kernels", phase_kernels, dev)
     from bionumpy_tpu_torch.ops._build import BUILD_DIR
     workdir = os.path.join(BUILD_DIR, "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        job_launches, counts, stats, stages, variants, lengths = phase_job(
-            dev, workdir)
-        parse_launches, auto_launches = phase_device_parse(
-            dev, workdir, counts, stats, stages)
-        motif_launches = phase_motif(dev, workdir, variants, lengths)
+        job_launches, counts, stats, stages, variants, lengths = run_phase(
+            "job", phase_job, dev, workdir)
+        parse_launches, auto_launches = run_phase(
+            "device-parse", phase_device_parse, dev, workdir, counts, stats,
+            stages)
+        motif_launches, motif = run_phase(
+            "motif", phase_motif, dev, workdir, variants, lengths)
+        mfq_launches = run_phase("minimizers-fastq", phase_minimizers_fastq,
+                                 dev, workdir, variants, lengths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    api_launches = phase_user_api(dev, variants, lengths)
-    sum_launches = phase_checksum(dev, counts, variants, lengths)
+    api_launches, seqs = run_phase("user-api", phase_user_api, dev,
+                                   variants, lengths)
+    enc_launches = run_phase("motif-encoded", phase_motif_encoded, dev,
+                             seqs, motif, variants, lengths)
+    del seqs
+    sum_launches = run_phase("checksum", phase_checksum, dev, counts,
+                             variants, lengths)
+    gc_launches, chunked_launches = run_phase("minimizers-gc",
+                                              phase_minimizers_gc, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],
         "device_parse": parse_launches["kmer_keys_kernel"],
         "device_parse_auto": auto_launches["kmer_keys_kernel"],
-        "user_api": api_launches["kmer_keys_kernel"]}
+        "user_api": api_launches["kmer_keys_kernel"],
+        "minimizers_gc": gc_launches["kmer_keys_kernel"],
+        "minimizers_gc_4_chunks": chunked_launches["kmer_keys_kernel"],
+        "minimizers_fastq": mfq_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
+    rows[2]["launches_by_path"] = {
+        "motif": motif_launches["pwm_scores_kernel"],
+        "motif_encoded": enc_launches["pwm_scores_kernel"]}
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -453,3 +453,73 @@ def test_count_kmers_fastq_on_card_matches_cpu(cuda, tmp_path, mode):
     got = pipeline.count_kmers_fastq(str(path), device=cuda, **kw)
     assert kk.LAUNCHES["kmer_keys_kernel"] > before
     assert got[0] == want[0] and got[1] == want[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, w", [(21, 30), (5, 12), (4, 4)])
+def test_minimizers_on_card_match_cpu(cuda, k, w):
+    """get_minimizers and count_minimizers_with_gc (whole and in 3
+    chunks) on the card equal their device="cpu" results; kernel 1
+    launches on every card call."""
+    import bionumpy_tpu_torch as bt
+    seqs = bt.as_encoded_array(_reads(k + w, n_reads=600), bt.DNAEncoding)
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    got = bt.get_minimizers(seqs, k, w, device=cuda)
+    want = bt.get_minimizers(seqs, k, w, device="cpu")
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    np.testing.assert_array_equal(got.ravel().raw(), want.ravel().raw())
+    for n_chunks in (1, 3):
+        kw = dict(cap=1 << 16, bin_size=97, n_chunks=n_chunks)
+        got_t, got_gc = bt.count_minimizers_with_gc(seqs, k, w, device=cuda,
+                                                    **kw)
+        want_t, want_gc = bt.count_minimizers_with_gc(seqs, k, w,
+                                                      device="cpu", **kw)
+        assert got_t == want_t
+        np.testing.assert_array_equal(got_gc, want_gc)
+        assert got_gc.dtype == np.int32
+    assert kk.LAUNCHES["kmer_keys_kernel"] >= before + 1 + 1 + 3
+
+
+@pytest.mark.cuda
+def test_count_minimizers_fastq_on_card_matches_cpu(cuda, tmp_path):
+    import gzip
+
+    from bionumpy_tpu_torch import pipeline
+    path = tmp_path / "reads.fq.gz"
+    path.write_bytes(b"".join(gzip.compress(_fastq_bytes(_reads(s)),
+                                            mtime=0) for s in range(6)))
+    kw = dict(k=21, window_size=30, cap=1 << 16, acc_cap=1 << 19,
+              target_bases=20000)
+    want = pipeline.count_minimizers_fastq(str(path), device="cpu", **kw)
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    got = pipeline.count_minimizers_fastq(str(path), device=cuda, **kw)
+    assert kk.LAUNCHES["kmer_keys_kernel"] > before
+    assert got[0] == want[0] and got[1] == want[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 11, 32, 40])
+def test_motif_scans_on_card_match_cpu(cuda, w):
+    """get_motif_scores (over 2^15 bases, so on the device) and
+    get_motif_matches on the card equal their device="cpu" results, bit
+    for bit; windows up to 32 launch the pwm_scores kernel."""
+    import bionumpy_tpu_torch as bt
+    rng = np.random.default_rng(w)
+    counts = rng.integers(0, 31, (4, w))
+    counts[0, 0] = 0  # a -inf cell
+    pwm = bt.PWM.from_dict(dict(zip("ACGT", counts.tolist())))
+    seqs = bt.as_encoded_array(_reads(w, n_reads=400), bt.DNAEncoding)
+    assert seqs.size > 1 << 15
+    before = pk.LAUNCHES["pwm_scores_kernel"]
+    got = bt.get_motif_scores(seqs, pwm, device=cuda)
+    want = bt.get_motif_scores(seqs, pwm, device="cpu")
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    np.testing.assert_array_equal(np.asarray(got.ravel()),
+                                  np.asarray(want.ravel()))
+    flat = np.asarray(want.ravel())
+    threshold = float(np.percentile(flat[np.isfinite(flat)], 99))
+    got = bt.get_motif_matches(seqs, pwm, threshold, cap=64, device=cuda)
+    want = bt.get_motif_matches(seqs, pwm, threshold, cap=64, device="cpu")
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    np.testing.assert_array_equal(got.ravel(), want.ravel())
+    assert pk.LAUNCHES["pwm_scores_kernel"] == before + (2 if w <= 32 else 0)

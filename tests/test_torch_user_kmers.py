@@ -65,6 +65,30 @@ def _assert_same_counts(got, want):
     assert got.counts.dtype == np.int64 == np.asarray(want.counts).dtype
 
 
+def test_dense_count_compares_and_adds_with_list_labels():
+    """At k = 9 the port labels its dense counts with a range of label
+    codes, the JAX package with the list of the same ints: the two must
+    compare equal, add, and stack, the JAX package's own result included;
+    other labels must not."""
+    seqs, jseqs = _pair(_strings(9, seed=17))
+    got = tbnp.count_kmers(seqs, 9, device="cpu")
+    assert got.alphabet == range(4 ** 9)
+    listed = tbnp.EncodedCounts(list(range(4 ** 9)), got.counts.copy())
+    for other in (listed, jbnp.count_kmers(jseqs, 9)):
+        assert got == other
+        total = got + other
+        np.testing.assert_array_equal(total.counts, 2 * got.counts)
+        assert total.alphabet == range(4 ** 9)
+        stacked = tbnp.EncodedCounts.vstack([got, other])
+        assert stacked.counts.shape == (2, 4 ** 9)
+    assert sum([got, listed]) == got + listed
+    shifted = tbnp.EncodedCounts(list(range(1, 4 ** 9 + 1)), got.counts)
+    assert not got == shifted
+    with pytest.raises(AssertionError):
+        got + shifted
+    assert got == tbnp.EncodedCounts(range(4 ** 9), got.counts)
+
+
 @pytest.mark.parametrize("k", KS)
 def test_get_kmers_matches_jax(k):
     seqs, jseqs = _pair(_strings(k))
