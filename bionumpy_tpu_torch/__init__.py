@@ -21,12 +21,19 @@ on the same arrays, minimizers with the GC track (get_minimizers,
 count_minimizers, count_minimizers_with_gc, through kernel 1 and a
 windowed min) and motif scans (get_motif_scores, get_motif_matches,
 PositionWeightMatrix, read_motif, through the kernel of csrc/pwm.cu);
-and gzip-FASTQ -> minimizer counts (pipeline.count_minimizers_fastq).
+gzip-FASTQ -> minimizer counts (pipeline.count_minimizers_fastq); codon
+translation (translate_dna_to_protein) and composition counts
+(ops/seq.py); the rest of the k-mer ops of ops/kmers.py; and the string
+and record layer: StringArray, StringEncoding, the bool and VCF
+encodings, io/strops and io/regexp, bnpdataclass (with lazy record
+classes and io/dump_csv) and the record types of datatypes.
 """
 from . import instrument
 from .encoded_array import (EncodedArray, EncodedRaggedArray,
                             as_encoded_array, change_encoding)
 from .encodings import DNAEncoding
+from .encodings.string_encodings import StringEncoding
+from .string_array import StringArray, as_string_array, string_array
 from .io.jaspar import read_jaspar_matrix
 from .io.motifs import read_motif
 from .ops.kmers import kmer_checksum_streamed
@@ -40,6 +47,13 @@ from .sequence.minimizers import (Minimizers, count_minimizers,
 from .sequence.position_weight_matrix import (PWM, PositionWeightMatrix,
                                               get_motif_matches,
                                               get_motif_scores)
+from .sequence.translate import translate_dna_to_protein
+from .datatypes import (BamEntry, Bed6, GFFEntry, Interval, LocationEntry,
+                        SAMEntry, SequenceEntry, SequenceEntryWithQuality,
+                        VCFEntry)
+from . import datatypes
+from .bnpdataclass import replace
+from .io.strops import str_equal
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
@@ -49,4 +63,8 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_minimizers", "count_minimizers", "count_minimizers_with_gc",
            "Minimizers", "get_motif_scores", "get_motif_matches",
            "PositionWeightMatrix", "count_minimizers_fastq", "read_motif",
-           "AccOverflow", "instrument"]
+           "AccOverflow", "instrument", "translate_dna_to_protein",
+           "StringEncoding", "StringArray", "string_array", "as_string_array",
+           "datatypes", "Interval", "SequenceEntry", "SequenceEntryWithQuality",
+           "VCFEntry", "BamEntry", "SAMEntry", "Bed6", "GFFEntry",
+           "LocationEntry", "replace", "str_equal"]

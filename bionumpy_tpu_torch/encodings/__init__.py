@@ -1,8 +1,6 @@
-"""Encodings subpackage (the port's copy of bionumpy_tpu/encodings/__init__.py).
-
-Not copied yet: StringEncoding (string_encodings.py), BoolStringEncoding
-(bool_encoding.py) and the VCF encodings (vcf_encoding.py); nothing the
-port runs needs them (ROADMAP queue 1, the encodings item)."""
+"""Encodings subpackage (the port's copy of bionumpy_tpu/encodings/__init__.py,
+without its set_backend, which only raises).  The VCF genotype encodings
+are in vcf_encoding.py."""
 import numpy as np
 
 from ..encoded_array import BaseEncoding, Encoding, NumericEncoding
@@ -19,7 +17,8 @@ __all__ = ["BaseEncoding", "Encoding", "NumericEncoding", "AlphabetEncoding",
            "AminoAcidEncoding", "DNAEncoding", "RNAEncoding", "ACGTEncoding",
            "StrandEncoding", "CigarOpEncoding", "BamEncoding",
            "QualityEncoding", "CigarEncoding", "DigitEncoding",
-           "EncodingError", "KmerEncoding"]
+           "EncodingError", "KmerEncoding", "StringEncoding",
+           "BoolStringEncoding", "bool_string"]
 
 
 class DigitEncodingFactory(NumericEncoding):
@@ -55,3 +54,5 @@ QualityEncoding = DigitEncodingFactory("!")
 CigarEncoding = DigitEncodingFactory(chr(0))
 
 from .kmer_encodings import KmerEncoding  # noqa: E402
+from .string_encodings import StringEncoding  # noqa: E402
+from .bool_encoding import BoolStringEncoding, bool_string  # noqa: E402

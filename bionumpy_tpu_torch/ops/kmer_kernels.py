@@ -117,8 +117,13 @@ def window_limbs_plain(words: torch.Tensor, k: int):
     Words are widened to int64 and masked first, because `>>` on int32
     sign-extends."""
     n_positions = _n_positions(words, k)
+    return limbs_at(words, torch.arange(n_positions, device=words.device), k)
+
+
+def limbs_at(words: torch.Tensor, pos: torch.Tensor, k: int):
+    """(lo, hi) as window_limbs_plain gives them, at the window starts
+    `pos` (any shape, each below n_positions) only."""
     w = words.to(torch.int64) & 0xFFFFFFFF
-    pos = torch.arange(n_positions, device=words.device)
     wi = pos >> 4
     bit = (pos & 15) * 2
     p0, p1, p2 = w[wi], w[wi + 1], w[wi + 2]

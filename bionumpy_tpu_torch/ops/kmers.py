@@ -1,5 +1,4 @@
-"""Device k-mer counting core (the port of the main-path subset of
-bionumpy_tpu/ops/kmers.py).
+"""Device k-mer counting core (the port's copy of bionumpy_tpu/ops/kmers.py).
 
 A window's 2k-bit hash is one int64 key, not the JAX package's two
 uint32 limbs (the TPU has no int64).  Invalid windows carry the sentinel
@@ -11,22 +10,34 @@ of a `cap`-row table -> counts from the run-start differences.
 Everything here stays asynchronous on the card: no `.item()`, no
 `nonzero`, no shape that depends on the data.  Counts are device
 scalars and int64 tensors until the caller fetches them.
+
+The limb functions (kmer_hash_limbs, kmer_hashes_masked, hash_checksum,
+unique_kmer_stats) keep the JAX package's (lo, hi) outputs, as int64
+tensors below 2^32 where JAX has uint32; counts and checksums are int64,
+sums taken mod 2^32 as JAX's uint32 sums wrap.  The checksums reach the
+kernels: kmer_checksum_packed the fullsum kernel, the two pipeline
+checksums the keys kernel.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .device import bucket_size, resolve_device
+from .device import bucket_size, distance_to_row_end, resolve_device
 from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
-                           window_limbs_plain)
+                           limbs_at, window_limbs_plain)
+
+_M32 = 0xFFFFFFFF
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
            "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
            "sorted_runs_from_keys", "counts_from_runs", "kmer_sentinel_table_packed",
            "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
            "sparse_count_tables", "kmer_fullsum_packed",
-           "kmer_checksum_streamed", "heads_first"]
+           "kmer_checksum_streamed", "heads_first", "prepare_codes",
+           "kmer_hashes_masked", "kmer_count_small", "unique_kmer_stats",
+           "hash_checksum", "kmer_checksum_packed",
+           "kmer_checksum_pipeline_packed", "kmer_checksum_pipeline"]
 
 
 def prepare_packed(flat_codes: np.ndarray, lengths: np.ndarray,
@@ -250,3 +261,132 @@ def kmer_checksum_streamed(flat_codes: np.ndarray, lengths: np.ndarray,
         lo, hi = int(total[0]), int(total[1])
     return (n_kmers, (lo - corr_lo) & 0xFFFFFFFF,
             (hi - corr_hi) & 0xFFFFFFFF)
+
+
+def prepare_codes(flat_codes: np.ndarray, lengths: np.ndarray,
+                  min_bucket: int = 1 << 14):
+    """Host-side: flat codes and each position's distance to its row end
+    (ops/device.distance_to_row_end), zero-padded into a power-of-two
+    position bucket, the codes with 32 halo bases more.  Returns (codes
+    uint8, dist int32, n)."""
+    n = len(flat_codes)
+    n_positions = bucket_size(max(n, 1), min_bucket)
+    codes = np.zeros(n_positions + 2 * WORD_BASES, dtype=np.uint8)
+    codes[:n] = flat_codes
+    dist = np.zeros(n_positions, dtype=np.int32)
+    dist[:n] = distance_to_row_end(lengths)
+    return codes, dist, n
+
+
+def kmer_hashes_masked(codes_padded: torch.Tensor, dist_padded: torch.Tensor,
+                       k: int):
+    """(lo, hi, valid) at every position of a prepare_codes buffer: the
+    unmasked limbs (kmer_hash_limbs) and whether the window lies inside
+    its row (dist >= k).  Invalid positions keep their limbs, as in the
+    JAX package, so kernel 1's sentinel keys cannot serve here."""
+    lo, hi = kmer_hash_limbs(codes_padded, k)
+    return lo, hi, dist_padded[: lo.numel()] >= k
+
+
+def kmer_count_small(codes_padded: torch.Tensor, dist_padded: torch.Tensor,
+                     k: int, n_counts: int) -> torch.Tensor:
+    """int64 (n_counts,) counts of the valid windows' hashes (k <= 12,
+    n_counts = 4^k): invalid windows, and hashes >= n_counts, go to a
+    dump bin that is dropped."""
+    lo, _, valid = kmer_hashes_masked(codes_padded, dist_padded, k)
+    return count_keys(torch.where(valid, lo, n_counts), n_counts)
+
+
+def unique_kmer_stats(lo: torch.Tensor, hi: torch.Tensor,
+                      valid: torch.Tensor):
+    """(n_unique, n_valid) of the valid 64-bit hashes, as int64 device
+    scalars: one int64 key lo | hi << 32 per position, the sentinel where
+    invalid, sorted; the run heads below n_valid are the distinct hashes.
+    (A k <= 31 hash is below 2^62, so no valid key equals the
+    sentinel.)"""
+    keys = (lo.to(torch.int64) & _M32) | ((hi.to(torch.int64) & _M32) << 32)
+    keys = torch.where(valid, keys, SENTINEL)
+    s = torch.sort(keys.reshape(-1)).values
+    n_valid = valid.sum()
+    is_new = torch.ones_like(s, dtype=torch.bool)
+    is_new[1:] = s[1:] != s[:-1]
+    pos = torch.arange(s.numel(), device=s.device)
+    return (is_new & (pos < n_valid)).sum(), n_valid
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR of each row of a 2-D int64 tensor: torch has no XOR reduction,
+    so the rows are zero-padded to a power of two and folded in halves,
+    log2(n) steps on the tensor's device."""
+    n = x.shape[1]
+    size = 1 << max(n - 1, 0).bit_length()
+    buf = torch.zeros(x.shape[0], size, dtype=x.dtype, device=x.device)
+    buf[:, :n] = x
+    while size > 1:
+        size //= 2
+        buf = torch.bitwise_xor(buf[:, :size], buf[:, size:2 * size])
+    return buf[:, 0]
+
+
+def hash_checksum(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor):
+    """Order-independent checksum of the valid hashes: (lo_sum, hi_sum,
+    lo_xor, hi_xor), int64 device scalars, the sums mod 2^32.  Sums run
+    in int64: below 2^31 positions of values below 2^32 they cannot
+    overflow."""
+    limbs = torch.stack([lo.reshape(-1), hi.reshape(-1)]).to(torch.int64)
+    limbs = torch.where(valid.reshape(-1), limbs & _M32, 0)
+    sums = limbs.sum(1) & _M32
+    xors = _xor_reduce(limbs)
+    return sums[0], sums[1], xors[0], xors[1]
+
+
+def kmer_checksum_packed(words: torch.Tensor, ends: torch.Tensor, k: int):
+    """(n_kmers, lo_sum, hi_sum), int64 device scalars, of the windows
+    inside their rows of a packed batch (the sums mod 2^32).
+
+    The fullsum kernel sums every window position, validity ignored;
+    the windows that cross a row end, the last k-1 starts of each row,
+    are then recomputed as one (rows, k-1) gather and subtracted.
+    Windows past the last row end hash to 0 (the pack zero-fills them);
+    padding rows repeat the last end, have length 0 and drop out.
+    n_kmers follows from the row lengths."""
+    total = kmer_fullsum(words, k)
+    e = ends.to(torch.int64)
+    starts = torch.cat([e.new_zeros(1), e[:-1]])
+    offs = torch.arange(k - 1, 0, -1, device=words.device)
+    pos = e[:, None] - offs[None, :]
+    in_row = pos >= starts[:, None]
+    lo, hi = limbs_at(words, torch.clamp(pos, min=0), k)
+    corr = torch.stack([torch.where(in_row, lo, 0).sum(),
+                        torch.where(in_row, hi, 0).sum()])
+    sums = (total - corr) & _M32
+    n_kmers = torch.clamp(e - starts - (k - 1), min=0).sum()
+    return n_kmers, sums[0], sums[1]
+
+
+def _checksum_keys(keys: torch.Tensor):
+    valid = keys != SENTINEL
+    lo = torch.where(valid, keys & _M32, 0).sum() & _M32
+    hi = torch.where(valid, keys >> 32, 0).sum() & _M32
+    return valid.sum(), lo, hi
+
+
+def kmer_checksum_pipeline_packed(words: torch.Tensor, ends: torch.Tensor,
+                                  k: int, n_true: int):
+    """(n_kmers, lo_sum, hi_sum), int64 device scalars, of the windows
+    inside their rows and below min(ends[-1], n_true): the keys kernel's
+    keys (sentinel where invalid, the JAX package's mark + cumsum rule),
+    then the sums of their low and high 32 bits mod 2^32 and their
+    count."""
+    return _checksum_keys(kmer_keys(words, ends, k, n_true))
+
+
+def kmer_checksum_pipeline(codes_padded: torch.Tensor, lengths: torch.Tensor,
+                           k: int, n_true: int):
+    """kmer_checksum_pipeline_packed from codes and row lengths on a
+    device: the codes (0-3, as prepare_codes pads them) are packed there,
+    the row ends are the cumulative lengths."""
+    n_positions = codes_padded.numel() - 2 * WORD_BASES
+    words = pack_codes(codes_padded, n_positions)
+    ends = torch.cumsum(lengths, 0).to(torch.int32)
+    return _checksum_keys(kmer_keys(words, ends, k, n_true))

@@ -1,14 +1,15 @@
-"""Sequence operations: k-mers, minimizers, count tables and position
-weight matrices."""
+"""Sequence operations: k-mers, minimizers, count tables, position
+weight matrices and translation."""
 from .count_encoded import EncodedCounts, SparseEncodedCounts, count_encoded
 from .kmers import KmerEncoder, count_kmers, get_kmers
 from .minimizers import (Minimizers, count_minimizers,
                          count_minimizers_with_gc, get_minimizers)
 from .position_weight_matrix import (PWM, PositionWeightMatrix,
                                      get_motif_matches, get_motif_scores)
+from .translate import translate_dna_to_protein
 
 __all__ = ["count_kmers", "get_kmers", "get_minimizers", "count_minimizers",
            "count_minimizers_with_gc", "get_motif_scores",
            "get_motif_matches", "count_encoded", "EncodedCounts",
            "SparseEncodedCounts", "KmerEncoder", "Minimizers", "PWM",
-           "PositionWeightMatrix"]
+           "PositionWeightMatrix", "translate_dna_to_protein"]

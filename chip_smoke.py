@@ -11,8 +11,11 @@ over raw bytes parsed on the card; gzip FASTQ -> exact PWM match
 positions, on the motif job's shape (the first 512 members of the same
 file, ~111 M bases); gzip FASTQ -> exact minimizer table over the same
 file; the user-level k-mer and motif API over the motif job's reads as
-one EncodedRaggedArray; and bench config 3's minimizer + GC-track job
-over 97 M seeded bases.  Phases, each of which raises on failure:
+one EncodedRaggedArray; bench config 3's minimizer + GC-track job over
+97 M seeded bases; bench config 1 (gzip FASTQ -> per-base composition)
+over the headline file; codon translation of the motif job's reads; and
+the checksum and dense-count k-mer ops at one full batch.  Phases, each
+of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -74,10 +77,32 @@ over 97 M seeded bases.  Phases, each of which raises on failure:
                numpy recount, each base must be uploaded once a run and
                kmer_keys must have launched; prints the wall, Mbases/s,
                device busy time, idle share and peak device memory
+ 12. composition  bench config 1 over the phase 4 file, as bench.py
+               drives it: _batch_arrays (fused parse), _prefetched,
+               _parse_batch, the words to the card, composition_from_packed
+               accumulated there in int64; warm-up, timed and profiled
+               runs; the totals must equal a numpy bincount of the
+               variants times their copies; prints the wall, Mbases/s, the
+               host split, busy time, idle share, peak memory and the op's
+               time per batch beside its bound by bytes
+ 13. translate  phase 7's reads cut to whole codons, in the TCAG alphabet:
+               translate_dna_to_protein on the card must equal a numpy
+               recount of the codon table, row by row; then lut_gather,
+               encode_with_validation (no invalid byte, then one planted)
+               and composition_counts over the 112.5 M bases against numpy
+ 14. kmer-ops  at one full batch (2^25 positions), k = 31 and 15:
+               kmer_checksum_packed (fullsum kernel), the two pipeline
+               checksums (keys kernel) against each other, device="cpu"
+               and numpy; kmer_hashes_masked, unique_kmer_stats and
+               hash_checksum against a numpy recount; kmer_count_small
+               (k = 12) against kmer_count_small_packed; each function's
+               kernel launches reset before it and held to its route
 
 Each phase prints its seconds ("[phase] ...").
 
-It prints a {"kernels": [...]} line, nvidia-smi's line, and last
+It prints a {"torch_ops": [...]} line (the ops the JAX package runs as
+XLA, timed beside their bounds), a {"kernels": [...]} line, nvidia-smi's
+line, and last
 {"ok": true, "device": {...}}.  Without a card it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package.
 """
@@ -138,7 +163,8 @@ def gpu_line() -> str:
 def batch_inputs(seed: int):
     """One full batch: seeded random codes in reads of 150-286 bases
     (mean ~218), packed as the pipeline packs them, with the row ends
-    padded to a power-of-two bucket as _parse_batch pads them."""
+    padded to a power-of-two bucket as _parse_batch pads them.  Returns
+    (words, ends, n, codes, lengths)."""
     from bionumpy_tpu_torch.ops.device import bucket_size
     from bionumpy_tpu_torch.ops.kmers import prepare_packed
     rng = np.random.default_rng(seed)
@@ -149,7 +175,7 @@ def batch_inputs(seed: int):
     rows = bucket_size(len(ends), 4096)
     ends = np.concatenate([ends, np.full(rows - len(ends), ends[-1],
                                          np.int32)])
-    return words, ends, n
+    return words, ends, n, codes, lengths
 
 
 def make_job(path: str, n_variants: int, copies: int, n_reads: int,
@@ -185,13 +211,10 @@ def make_job(path: str, n_variants: int, copies: int, n_reads: int,
 def variant_hashes(codes, lengths, k: int) -> np.ndarray:
     """uint64 hashes of the windows of one variant's reads that lie
     inside their read, in position order (numpy recount)."""
+    h = numpy_kmer_hashes(codes, k)
     ends = np.cumsum(lengths)
-    dist = np.repeat(ends, lengths) - np.arange(int(lengths.sum()))
-    n = len(codes) - k + 1
-    h = np.zeros(n, np.uint64)
-    for j in range(k):
-        h |= codes[j: j + n].astype(np.uint64) << np.uint64(2 * j)
-    return h[dist[:n] >= k]
+    dist = np.repeat(ends, lengths) - np.arange(len(codes))
+    return h[dist[: len(h)] >= k]
 
 
 def expected_table(variants, lengths, copies: int, k: int):
@@ -415,7 +438,7 @@ def phase_kernels(dev):
     timed.  Returns the rows of the kernels line (launches added by the
     path phases)."""
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
-    words_np, ends_np, n = batch_inputs(SEED)
+    words_np, ends_np, n, _, _ = batch_inputs(SEED)
     words = torch.from_numpy(words_np.view(np.int32)).to(dev)
     ends = torch.from_numpy(ends_np).to(dev)
     n_pos = (words.numel() - 2) * kk.WORD_BASES
@@ -1197,6 +1220,309 @@ def phase_checksum(dev, counts, variants, lengths):
     return launches
 
 
+def ops_device_ms(fn, runs: int = 5):
+    """Device time in ms of one call of fn: the kernels and copies the
+    profiler records over `runs` calls, divided by `runs` (None when it
+    records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / runs / 1e3 if us else None
+
+
+def synced_s(fn):
+    """(result, seconds) of one call of fn, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_composition(dev, workdir: str, variants, lengths,
+                      target_bases: int = (1 << 25) - (1 << 21)):
+    """Bench config 1 over phase 4's file, driven as bench.py's config1
+    drives it: entry-aligned batches from _batch_arrays (fused parse),
+    prefetched, each batch's packed words to the card and
+    composition_from_packed accumulated there in int64, one fetch at the
+    end.  Warm-up, timed and profiled runs; the totals must equal a numpy
+    bincount of the variants times their copies.  Returns the op's row
+    of the torch-ops line."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.instrument import stage
+    from bionumpy_tpu_torch.ops.pwm_kernels import unpack_codes
+    from bionumpy_tpu_torch.ops.seq import composition_from_packed
+    from bionumpy_tpu_torch.pipeline import (_batch_arrays, _parse_batch,
+                                             _prefetched)
+    path = os.path.join(workdir, "job.fq.gz")
+    want = sum(np.bincount(codes, minlength=4) for codes in variants) * \
+        COPIES
+    first = {}
+
+    def run():
+        pool = ThreadPoolExecutor(4)
+        acc = torch.zeros(4, dtype=torch.int64, device=dev)
+        n_bases = n_reads = n_batches = 0
+        try:
+            for raw in _prefetched(_batch_arrays(path, target_bases, pool,
+                                                 fused_parse=True)):
+                words, _, nb, nr = _parse_batch(raw)
+                with stage("H2D", n_bytes=words.nbytes):
+                    words_d = torch.from_numpy(words.view(np.int32)).to(
+                        dev, non_blocking=True)
+                with stage("dispatch"):
+                    acc += composition_from_packed(words_d, nb)
+                if not first:
+                    first.update(words=words_d, n_true=nb)
+                n_bases += nb
+                n_reads += nr
+                n_batches += 1
+            with stage("D2H"):
+                totals = acc.cpu().numpy()
+        finally:
+            pool.shutdown(wait=False)
+        return totals, n_bases, n_reads, n_batches
+
+    _, warm = synced_s(run)
+    log(f"[composition] warm-up run {warm:.2f} s")
+    bt.instrument.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (totals, n_bases, n_reads, n_batches), wall = synced_s(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = bt.instrument.report()
+    if not (np.array_equal(totals, want) and n_bases == int(want.sum())
+            and n_reads == N_VARIANTS * COPIES * N_READS):
+        raise AssertionError(f"composition {totals.tolist()} over {n_bases} "
+                             f"bases != the recount {want.tolist()}")
+    log(f"[composition] exact: ACGT {totals.tolist()} over {n_bases} bases, "
+        f"{n_reads} reads, {n_batches} batches")
+    log(f"[composition] split: {bt.instrument.summary(total=wall)}")
+    log("[composition] stages: " + json.dumps(stages))
+    prof = profile_job(run, "composition")
+    # the op alone on the first batch's words (a full batch)
+    words_d, n_true = first["words"], first["n_true"]
+    op = lambda: composition_from_packed(words_d, n_true)  # noqa: E731
+    plain = lambda: torch.bincount(  # noqa: E731
+        unpack_codes(words_d)[:n_true], minlength=4)
+    if not torch.equal(op(), plain()):
+        raise AssertionError("composition_from_packed differs from the "
+                             "bincount of the unpacked codes")
+    row = torch_op_row("composition_from_packed", "bionumpy_tpu/ops/seq.py:25",
+                       op, plain, words_d.numel() * 4 + 32,
+                       per=f"batch of {(words_d.numel() - 2) * 16} positions")
+    log("[composition] " + json.dumps({
+        "wall_s": wall, "mbases_per_s": n_bases / wall / 1e6,
+        "n_batches": n_batches, "device_busy_ms": prof.get("device_busy_ms"),
+        "device_idle_share": prof.get("device_idle_share"),
+        "peak_device_bytes": peak, "op": row, "gpu": gpu_line()}))
+    return row
+
+
+def torch_op_row(name, replaces, op, plain, n_bytes, per):
+    """The timing row of a torch op the JAX package runs as XLA: CUDA-event
+    and profiler times of one call, its plain counterpart's, and its bound
+    by bytes (each input read once, each output written once)."""
+    bound_ms, bound_by = bound(n_bytes, 0)
+    row = {"name": name, "replaces": replaces, "route": "torch ops",
+           "ms": median_ms(op), "device_ms": ops_device_ms(op),
+           "plain_ms": median_ms(plain), "bound_ms": bound_ms,
+           "bound_by": bound_by, "per": per}
+    log(f"[ops] {name}: {row['ms']:.4f} ms (device {row['device_ms']}, "
+        f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}) per {per}")
+    return row
+
+
+TCAG_FROM_ACGT = np.array([2, 1, 3, 0], np.uint8)  # A C G T -> TCAG codes
+
+
+def phase_translate(dev, variants, lengths):
+    """Translation at phase 7's size: the motif job's 512,000 reads, each
+    cut to a multiple of 3 bases and held in the TCAG alphabet, through
+    translate_dna_to_protein on the card; every row must equal a numpy
+    recount of the codon table.  Then lut_gather, encode_with_validation
+    (with no invalid byte and with one planted) and composition_counts at
+    the full 112.5 M positions against numpy.  Returns the gather's row
+    of the torch-ops line."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.encodings import DNAEncoding
+    from bionumpy_tpu_torch.ops import seq
+    from bionumpy_tpu_torch.sequence.translate import DNAToProtein
+    n_var = MOTIF_MEMBERS // COPIES
+    cut = lengths // 3 * 3
+    ends = np.cumsum(lengths)
+    keep = np.arange(int(lengths.sum())) - np.repeat(ends - lengths,
+                                                     lengths) < \
+        np.repeat(cut, lengths)
+    own = [TCAG_FROM_ACGT[codes[keep]] for codes in variants[:n_var]]
+    table = DNAToProtein.lookup_table
+    aminos = [table[c[2::3].astype(np.int64) + 4 * c[1::3] + 16 * c[0::3]]
+              for c in own]
+    flat = np.concatenate([c for c in own for _ in range(COPIES)])
+    want = np.concatenate([a for a in aminos for _ in range(COPIES)])
+    row_lengths = np.tile(cut, MOTIF_MEMBERS)
+    seqs = bt.EncodedRaggedArray(
+        bt.EncodedArray(flat, DNAToProtein.from_encoding), row_lengths)
+    log(f"[translate] {len(seqs)} reads, {len(flat)} bases in whole codons, "
+        f"{len(want)} amino acids expected")
+    times = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    proteins, times["translate_dna_to_protein"] = synced_s(
+        lambda: bt.translate_dna_to_protein(seqs, device=dev))
+    if not (np.array_equal(proteins.lengths, row_lengths // 3) and
+            np.array_equal(proteins.ravel().raw(), want)):
+        raise AssertionError("translate_dna_to_protein differs from the "
+                             "codon-table recount")
+    peak = torch.cuda.max_memory_allocated(dev)
+    codes_d = torch.from_numpy(flat).to(dev)
+    table_d = torch.from_numpy(table.copy()).to(dev)
+    gather = lambda: seq.translate_codons(codes_d, table_d)  # noqa: E731
+    plain = lambda: table_d[codes_d[2::3].to(torch.int64)  # noqa: E731
+                            + 4 * codes_d[1::3] + 16 * codes_d[0::3]]
+    row = torch_op_row("translate_codons", "bionumpy_tpu/ops/seq.py:58",
+                       gather, plain, len(flat) + 64 + len(want),
+                       per=f"{len(want)} codons")
+    del codes_d
+
+    # the ASCII of every base: lut_gather, validation, composition
+    text = np.frombuffer(b"ACGT", np.uint8)[np.concatenate(
+        [variants[v] for v in range(n_var) for _ in range(COPIES)])]
+    lut = DNAEncoding.lookup_table.copy()
+    lut_d, text_d = (torch.from_numpy(a).to(dev) for a in (lut, text))
+    codes, times["lut_gather"] = synced_s(lambda: seq.lut_gather(lut_d,
+                                                                 text_d))
+    want_codes = lut[text]
+    if not np.array_equal(codes.cpu().numpy(), want_codes):
+        raise AssertionError("lut_gather differs from numpy")
+    planted = len(text) * 2 // 3 + 1
+    for where in (None, planted):
+        if where is not None:
+            text_d[where] = ord("N")
+        (got, first), times[f"encode_with_validation_{where}"] = synced_s(
+            lambda: seq.encode_with_validation(lut_d, text_d))
+        first = int(first)
+        if first != (-1 if where is None else where) or \
+                int((got == 255).sum()) != (where is not None):
+            raise AssertionError(f"encode_with_validation found offset "
+                                 f"{first}, planted {where}")
+    valid_d = torch.arange(len(text), device=dev) % 7 != 0
+    counts, times["composition_counts"] = synced_s(
+        lambda: seq.composition_counts(codes, valid_d, 4))
+    valid = np.arange(len(text)) % 7 != 0
+    if not np.array_equal(counts.cpu().numpy(),
+                          np.bincount(want_codes[valid], minlength=4)):
+        raise AssertionError("composition_counts differs from numpy")
+    log(f"[translate] exact: {len(want)} amino acids in {len(proteins)} "
+        f"rows; lut_gather, encode_with_validation (none, and offset "
+        f"{planted}) and composition_counts over {len(text)} bytes")
+    log("[translate] " + json.dumps({
+        "seconds": times, "peak_device_bytes": peak, "gather": row,
+        "gpu": gpu_line()}))
+    return row
+
+
+def phase_kmer_ops(dev, batch):
+    """The checksum and dense-count ops of ops/kmers at one full batch of
+    2^25 positions, k = 31 and 15: the three checksums must agree with
+    each other and with device="cpu"; kmer_count_small (k = 12) must
+    equal kmer_count_small_packed, unique_kmer_stats the runs of a
+    sorted numpy recount, hash_checksum numpy's sums and XORs.  The
+    kernels' launch counts are reset before each function and must be
+    those of its route.  Returns the launches of both kernels."""
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import kmers as tk
+    words_np, ends_np, n, codes, lengths = batch
+    padded, dist, _ = tk.prepare_codes(codes, lengths)
+    host = {"words": torch.from_numpy(words_np.view(np.int32)),
+            "ends": torch.from_numpy(ends_np),
+            "codes": torch.from_numpy(padded),
+            "dist": torch.from_numpy(dist),
+            "lengths": torch.from_numpy(lengths.astype(np.int32))}
+    card = {name: t.to(dev) for name, t in host.items()}
+    total = {"kmer_keys_kernel": 0, "kmer_fullsum_kernel": 0}
+    times = {}
+
+    def launched(tag, fn, want):
+        kk.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kk.LAUNCHES)
+        if got != {"kmer_keys_kernel": want[0],
+                   "kmer_fullsum_kernel": want[1]}:
+            raise AssertionError(f"{tag} launched {got}, its route "
+                                 f"{want}")
+        for name in total:
+            total[name] += got[name]
+        times[tag] = median_ms(fn, runs=5)
+        return out
+
+    m32 = np.uint64(0xFFFFFFFF)
+    for k in (K, 15):
+        checks = {
+            "kmer_checksum_packed": (
+                lambda d: tk.kmer_checksum_packed(d["words"], d["ends"], k),
+                (0, 1)),
+            "kmer_checksum_pipeline_packed": (
+                lambda d: tk.kmer_checksum_pipeline_packed(
+                    d["words"], d["ends"], k, n), (1, 0)),
+            "kmer_checksum_pipeline": (
+                lambda d: tk.kmer_checksum_pipeline(
+                    d["codes"], d["lengths"], k, n), (1, 0))}
+        results = []
+        for name, (fn, route) in checks.items():
+            got = [int(v) for v in launched(f"{name}_k{k}",
+                                            lambda: fn(card), route)]
+            want = [int(v) for v in fn(host)]
+            if got != want:
+                raise AssertionError(f"{name} (k={k}) {got} != cpu {want}")
+            results.append(got)
+        h = variant_hashes(codes, lengths, k)
+        if any(r != results[0] for r in results) or results[0] != [
+                len(h), int(np.sum(h & m32, dtype=np.uint64) & m32),
+                int(np.sum(h >> np.uint64(32), dtype=np.uint64) & m32)]:
+            raise AssertionError(f"the checksums (k={k}) {results} disagree "
+                                 f"with each other or numpy")
+        lo, hi, valid = launched(
+            f"kmer_hashes_masked_k{k}", lambda: tk.kmer_hashes_masked(
+                card["codes"], card["dist"], k), (0, 0))
+        stats = [int(v) for v in launched(
+            f"unique_kmer_stats_k{k}",
+            lambda: tk.unique_kmer_stats(lo, hi, valid), (0, 0))]
+        sums = [int(v) for v in launched(
+            f"hash_checksum_k{k}",
+            lambda: tk.hash_checksum(lo, hi, valid), (0, 0))]
+        del lo, hi, valid
+        s = np.sort(h)
+        runs = int(np.count_nonzero(s[1:] != s[:-1])) + (len(s) > 0)
+        limbs = (h & m32, h >> np.uint64(32))
+        want_sums = [int(np.sum(x, dtype=np.uint64) & m32) for x in limbs] \
+            + [int(np.bitwise_xor.reduce(x)) for x in limbs]
+        if stats != [runs, len(h)] or sums != want_sums:
+            raise AssertionError(f"unique_kmer_stats {stats} / hash_checksum "
+                                 f"{sums} (k={k}) != numpy {[runs, len(h)]} "
+                                 f"/ {want_sums}")
+        log(f"[kmer-ops] k={k}: 3 checksums equal {results[0]} (cpu and "
+            f"numpy too); {runs} distinct of {len(h)}; xor {sums[2:]}")
+    small = launched("kmer_count_small_k12", lambda: tk.kmer_count_small(
+        card["codes"], card["dist"], 12, 4 ** 12), (0, 0))
+    if not torch.equal(small, tk.kmer_count_small_packed(
+            card["words"], card["ends"], 12, 4 ** 12, n)):
+        raise AssertionError("kmer_count_small != kmer_count_small_packed")
+    log(f"[kmer-ops] kmer_count_small (k=12) equals kmer_count_small_packed "
+        f"({int(small.sum())} 12-mers); launches {total}")
+    log("[kmer-ops] " + json.dumps({"ms": times, "launches": total,
+                                    "positions": len(dist),
+                                    "gpu": gpu_line()}))
+    return total
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1230,6 +1556,8 @@ def main() -> int:
             "motif", phase_motif, dev, workdir, variants, lengths)
         mfq_launches = run_phase("minimizers-fastq", phase_minimizers_fastq,
                                  dev, workdir, variants, lengths)
+        op_rows = [run_phase("composition", phase_composition, dev, workdir,
+                             variants, lengths)]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     api_launches, seqs = run_phase("user-api", phase_user_api, dev,
@@ -1241,6 +1569,10 @@ def main() -> int:
                              variants, lengths)
     gc_launches, chunked_launches = run_phase("minimizers-gc",
                                               phase_minimizers_gc, dev)
+    op_rows.append(run_phase("translate", phase_translate, dev, variants,
+                             lengths))
+    ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
+                             batch_inputs(SEED))
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],
@@ -1249,12 +1581,17 @@ def main() -> int:
         "user_api": api_launches["kmer_keys_kernel"],
         "minimizers_gc": gc_launches["kmer_keys_kernel"],
         "minimizers_gc_4_chunks": chunked_launches["kmer_keys_kernel"],
-        "minimizers_fastq": mfq_launches["kmer_keys_kernel"]}
+        "minimizers_fastq": mfq_launches["kmer_keys_kernel"],
+        "kmer_ops": ops_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
+    rows[1]["launches_by_path"] = {
+        "checksum": sum_launches["kmer_fullsum_kernel"],
+        "kmer_ops": ops_launches["kmer_fullsum_kernel"]}
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     rows[2]["launches_by_path"] = {
         "motif": motif_launches["pwm_scores_kernel"],
         "motif_encoded": enc_launches["pwm_scores_kernel"]}
+    print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -523,3 +523,121 @@ def test_motif_scans_on_card_match_cpu(cuda, w):
     np.testing.assert_array_equal(got.lengths, want.lengths)
     np.testing.assert_array_equal(got.ravel(), want.ravel())
     assert pk.LAUNCHES["pwm_scores_kernel"] == before + (2 if w <= 32 else 0)
+
+
+def _to(dev, *tensors):
+    return [t.to(dev) for t in tensors]
+
+
+def _ints(values):
+    return [int(v) for v in values]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 12, 16, 17, 31])
+@pytest.mark.parametrize("cut", [0, 1, 333])
+def test_kmer_checksums_on_card_match_cpu(cuda, k, cut):
+    """The three checksums on the card equal their CPU results (an odd
+    n_true too); kmer_checksum_packed launches the fullsum kernel once,
+    the two pipeline checksums the keys kernel once each."""
+    from bionumpy_tpu_torch.ops import kmers as tk
+    codes, lengths, words, ends, n = _batch(k)
+    n_true = n - cut
+    padded, _, _ = tk.prepare_codes(codes, lengths)
+    padded = torch.from_numpy(padded)
+    lengths32 = torch.from_numpy(lengths.astype(np.int32))
+    want = [_ints(tk.kmer_checksum_packed(words, ends, k)),
+            _ints(tk.kmer_checksum_pipeline_packed(words, ends, k, n_true)),
+            _ints(tk.kmer_checksum_pipeline(padded, lengths32, k, n_true))]
+    words_d, ends_d, padded_d, lengths_d = _to(cuda, words, ends, padded,
+                                               lengths32)
+    kk.reset_launches()
+    got = [_ints(tk.kmer_checksum_packed(words_d, ends_d, k))]
+    assert kk.LAUNCHES == {"kmer_keys_kernel": 0, "kmer_fullsum_kernel": 1}
+    got.append(_ints(tk.kmer_checksum_pipeline_packed(words_d, ends_d, k,
+                                                      n_true)))
+    got.append(_ints(tk.kmer_checksum_pipeline(padded_d, lengths_d, k,
+                                               n_true)))
+    assert kk.LAUNCHES == {"kmer_keys_kernel": 2, "kmer_fullsum_kernel": 1}
+    assert got == want
+    if cut == 0:
+        assert want[0] == want[1] == want[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 12, 31])
+def test_kmer_limb_ops_on_card_match_cpu(cuda, k):
+    """kmer_hashes_masked, kmer_count_small, unique_kmer_stats and
+    hash_checksum (torch ops, no kernel) on the card equal the CPU."""
+    from bionumpy_tpu_torch.ops import kmers as tk
+    codes, lengths, *_ = _batch(100 + k)
+    padded, dist, _ = tk.prepare_codes(codes, lengths)
+    padded, dist = torch.from_numpy(padded), torch.from_numpy(dist)
+    lo, hi, valid = tk.kmer_hashes_masked(padded, dist, k)
+    dlo, dhi, dvalid = tk.kmer_hashes_masked(*_to(cuda, padded, dist), k)
+    assert torch.equal(dlo.cpu(), lo) and torch.equal(dhi.cpu(), hi) and \
+        torch.equal(dvalid.cpu(), valid)
+    assert _ints(tk.unique_kmer_stats(dlo, dhi, dvalid)) == \
+        _ints(tk.unique_kmer_stats(lo, hi, valid))
+    assert _ints(tk.hash_checksum(dlo, dhi, dvalid)) == \
+        _ints(tk.hash_checksum(lo, hi, valid))
+    if k <= 12:
+        got = tk.kmer_count_small(*_to(cuda, padded, dist), k, 4 ** k)
+        assert torch.equal(got.cpu(),
+                           tk.kmer_count_small(padded, dist, k, 4 ** k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_true", [0, 1, 17, 12345, 99999])
+def test_composition_from_packed_on_card_matches_cpu(cuda, n_true):
+    """Random words, so the bits past n_true are not zero; n_true odd
+    and not a multiple of 16 too."""
+    from bionumpy_tpu_torch.ops import seq
+    rng = np.random.default_rng(n_true)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, 6252, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    want = seq.composition_from_packed(words, n_true)
+    assert torch.equal(seq.composition_from_packed(words.to(cuda),
+                                                   n_true).cpu(), want)
+    assert int(want.sum()) == n_true
+
+
+@pytest.mark.cuda
+def test_seq_gathers_on_card_match_cpu(cuda):
+    from bionumpy_tpu_torch.ops import seq
+    from bionumpy_tpu_torch.sequence.translate import DNAToProtein
+    rng = np.random.default_rng(5)
+    codes = torch.from_numpy(rng.integers(0, 4, 3 * 50001).astype(np.uint8))
+    table = torch.from_numpy(DNAToProtein.lookup_table.copy())
+    assert torch.equal(seq.translate_codons(*_to(cuda, codes, table)).cpu(),
+                       seq.translate_codons(codes, table))
+    lut = torch.from_numpy(np.where(np.arange(256) < 200, np.arange(256) % 4,
+                                    255).astype(np.uint8))
+    data = torch.from_numpy(rng.integers(0, 200, 77777).astype(np.uint8))
+    data[40001] = 222
+    c_cpu, first_cpu = seq.encode_with_validation(lut, data)
+    c_card, first_card = seq.encode_with_validation(*_to(cuda, lut, data))
+    assert torch.equal(c_card.cpu(), c_cpu) and int(first_card) == \
+        int(first_cpu) == 40001
+    assert torch.equal(seq.lut_gather(*_to(cuda, lut, data)).cpu(),
+                       seq.lut_gather(lut, data))
+    valid = data < 150
+    assert torch.equal(seq.composition_counts(*_to(cuda, c_cpu, valid),
+                                              4).cpu(),
+                       seq.composition_counts(c_cpu, valid, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_reads", [20, 900])
+def test_translate_dna_to_protein_on_card_matches_cpu(cuda, n_reads):
+    """Below and above 2^15 codes (host route, then the card's)."""
+    import bionumpy_tpu_torch as bt
+    reads = [r[: len(r) // 3 * 3] for r in _reads(n_reads, n_reads)]
+    seqs = bt.as_encoded_array(reads)
+    got = bt.translate_dna_to_protein(seqs, device=cuda)
+    want = bt.translate_dna_to_protein(seqs, device="cpu")
+    assert got.tolist() == want.tolist()
+    entries = bt.SequenceEntry.from_entry_tuples(
+        [(f"r{i}", r) for i, r in enumerate(reads)])
+    got = bt.translate_dna_to_protein(entries, device=cuda)
+    assert got.sequence.tolist() == want.tolist()
