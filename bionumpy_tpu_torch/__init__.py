@@ -26,7 +26,10 @@ translation (translate_dna_to_protein) and composition counts
 (ops/seq.py); the rest of the k-mer ops of ops/kmers.py; and the string
 and record layer: StringArray, StringEncoding, the bool and VCF
 encodings, io/strops and io/regexp, bnpdataclass (with lazy record
-classes and io/dump_csv) and the record types of datatypes.
+classes and io/dump_csv) and the record types of datatypes; the file
+layer (bnp.open / read / count_entries / open_indexed over the readers and
+writers of io/, with util/ and alignments/cigar), whose chunks feed the
+calls above.
 """
 from . import instrument
 from .encoded_array import (EncodedArray, EncodedRaggedArray,
@@ -54,6 +57,13 @@ from .datatypes import (BamEntry, Bed6, GFFEntry, Interval, LocationEntry,
 from . import datatypes
 from .bnpdataclass import replace
 from .io.strops import str_equal
+from .io import (Bed6Buffer, BedBuffer, FastQBuffer, GFFBuffer,
+                 GfaSequenceBuffer, MultiLineFastaBuffer, NarrowPeakBuffer,
+                 SAMBuffer, TwoLineFastaBuffer, bnp_open, count_entries,
+                 get_bufferclass_for_datatype, open_indexed, read)
+from .io.matrix_dump import Matrix
+
+open = bnp_open
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
@@ -67,4 +77,9 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "StringEncoding", "StringArray", "string_array", "as_string_array",
            "datatypes", "Interval", "SequenceEntry", "SequenceEntryWithQuality",
            "VCFEntry", "BamEntry", "SAMEntry", "Bed6", "GFFEntry",
-           "LocationEntry", "replace", "str_equal"]
+           "LocationEntry", "replace", "str_equal", "open", "bnp_open",
+           "read", "count_entries", "open_indexed", "Matrix",
+           "get_bufferclass_for_datatype", "TwoLineFastaBuffer",
+           "FastQBuffer", "MultiLineFastaBuffer", "BedBuffer", "Bed6Buffer",
+           "NarrowPeakBuffer", "GfaSequenceBuffer", "GFFBuffer",
+           "SAMBuffer"]

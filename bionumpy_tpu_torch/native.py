@@ -1,11 +1,13 @@
 """ctypes bindings for the port's native host kernels
 (csrc/host/host_kernels.cpp and csrc/host/inflate.cpp): the port's own
-copy of the parts of bionumpy_tpu/native.py that the gzip-FASTQ k-mer
-path calls.
+copy of bionumpy_tpu/native.py.
 
 Built on demand with g++ into the package's `_build/` directory.  This is
-host code, not a device kernel: every entry point keeps a pure-numpy
-fallback, so the package works without a C++ compiler."""
+host code, not a device kernel.  The gzip-FASTQ helpers keep a pure-numpy
+fallback, so those paths work without a C++ compiler.  The file readers'
+helpers (find_positions, parse_ints, bam_find_starts, gather_rows) raise
+when the library did not build; each has a numpy twin (`_..._py`) that
+the tests hold it to."""
 from __future__ import annotations
 
 import ctypes
@@ -22,13 +24,15 @@ _SRC_PATHS = [os.path.join(_build.CSRC, "host", "host_kernels.cpp"),
               os.path.join(_build.CSRC, "host", "inflate.cpp")]
 _lib = None
 _tried = False
+_error = None
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 def _load():
     """The host library, built if needed; None without a compiler."""
-    global _lib, _tried
+    global _lib, _tried, _error
     if _tried:
         return _lib
     _tried = True
@@ -37,6 +41,7 @@ def _load():
                             ["g++"] + _build.HOST_FLAGS)
     except (OSError, RuntimeError) as e:
         logger.info("could not build native host kernels: %s", e)
+        _error = e
         return None
     lib = ctypes.CDLL(path)
     lib.pack_2bit.restype = None
@@ -68,12 +73,41 @@ def _load():
     lib.copy_2bit_shifted.restype = None
     lib.copy_2bit_shifted.argtypes = [_U8P, ctypes.c_long, _U8P,
                                       ctypes.c_long]
+    lib.count_two_bytes.restype = ctypes.c_long
+    lib.count_two_bytes.argtypes = [_U8P, ctypes.c_long, ctypes.c_uint8,
+                                    ctypes.c_uint8]
+    lib.find_two_bytes.restype = ctypes.c_long
+    lib.find_two_bytes.argtypes = [_U8P, ctypes.c_long, ctypes.c_uint8,
+                                   ctypes.c_uint8, _I64P]
+    lib.bam_find_starts.restype = ctypes.c_long
+    lib.bam_find_starts.argtypes = [_U8P, ctypes.c_long, _I64P,
+                                    ctypes.c_long]
+    lib.gather_rows_u8.restype = ctypes.c_long
+    lib.gather_rows_u8.argtypes = [_U8P, ctypes.c_long, _I64P, _I64P,
+                                   ctypes.c_long, _U8P]
+    lib.parse_ints.restype = ctypes.c_long
+    lib.parse_ints.argtypes = [_U8P, ctypes.c_long, _I64P, _I64P,
+                               ctypes.c_long, _I64P]
     _lib = lib
     return _lib
 
 
+def _require():
+    """The host library; raises when it did not build (the readers'
+    helpers take no silent numpy path)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"the native host library did not build: "
+                           f"{_error}")
+    return lib
+
+
 def _ptr(arr: np.ndarray):
     return arr.ctypes.data_as(_U8P)
+
+
+def _i64(arr: np.ndarray):
+    return arr.ctypes.data_as(_I64P)
 
 
 def pack_2bit_fill(codes: np.ndarray, out_bytes: int,
@@ -339,3 +373,141 @@ def copy_2bit_shifted(src: np.ndarray, n_bases: int, dst: np.ndarray,
     lib.copy_2bit_shifted(_ptr(src), int(n_bases), _ptr(dst),
                           int(dst_base_off))
     return True
+
+
+def find_positions(buf: np.ndarray, value_a: int,
+                   value_b: int = None) -> np.ndarray:
+    """Positions of bytes equal to value_a (or value_b) in a uint8
+    buffer, as int64, in one SIMD pass: np.flatnonzero((buf == a) |
+    (buf == b)) without numpy's three passes."""
+    lib = _require()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if value_b is None:
+        value_b = value_a
+    n = lib.count_two_bytes(_ptr(buf), len(buf), value_a, value_b)
+    out = np.empty(n, dtype=np.int64)
+    lib.find_two_bytes(_ptr(buf), len(buf), value_a, value_b, _i64(out))
+    return out
+
+
+def _find_positions_py(buf: np.ndarray, value_a: int,
+                       value_b: int = None) -> np.ndarray:
+    """Numpy twin of find_positions."""
+    buf = np.asarray(buf, dtype=np.uint8)
+    if value_b is None:
+        value_b = value_a
+    return np.flatnonzero((buf == value_a) | (buf == value_b)).astype(
+        np.int64)
+
+
+def bam_find_starts(chunk: np.ndarray) -> np.ndarray:
+    """All BAM record start offsets <= len(chunk), starting at 0:
+    start' = start + 4 + block_len(start), followed until the next start
+    would pass the chunk's end."""
+    lib = _require()
+    chunk = np.ascontiguousarray(chunk, dtype=np.uint8)
+    max_starts = len(chunk) // 4 + 2
+    starts = np.empty(max_starts, dtype=np.int64)
+    count = lib.bam_find_starts(_ptr(chunk), len(chunk), _i64(starts),
+                                max_starts)
+    if count < 0:
+        raise ValueError("corrupt BAM block length")
+    return starts[:count]
+
+
+def _bam_find_starts_py(chunk: np.ndarray) -> np.ndarray:
+    """Numpy twin of bam_find_starts."""
+    chunk = np.asarray(chunk, dtype=np.uint8)
+    n = len(chunk)
+    starts = [0]
+    pos = 0
+    while pos + 4 <= n:
+        nxt = pos + 4 + int.from_bytes(chunk[pos: pos + 4].tobytes(),
+                                       "little")
+        if nxt > n:
+            break
+        starts.append(nxt)
+        pos = nxt
+    return np.array(starts, dtype=np.int64)
+
+
+def _gather_plan_ok(src_n: int, starts: np.ndarray,
+                    lens: np.ndarray) -> bool:
+    return not len(lens) or (lens.min() >= 0 and starts.min() >= 0
+                             and int((starts + lens).max()) <= src_n)
+
+
+def gather_rows(src: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """Packed gather of the byte rows [starts[r], starts[r] + lens[r])
+    of a uint8 buffer in one memcpy pass, where numpy's index plan takes
+    six int64 passes.  The hot path of delimited-format column
+    extraction.  Returns the flat uint8 result, or None when a row is out
+    of bounds or of negative length (the caller then takes the checked
+    numpy plan)."""
+    lib = _require()
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    # a malformed plan must not size the output: a negative length after
+    # valid rows would overflow an output sized by the smaller sum
+    if not _gather_plan_ok(len(src), starts, lens):
+        return None
+    total = int(lens.sum())
+    out = np.empty(total + 8, dtype=np.uint8)  # 7 bytes of slack
+    got = lib.gather_rows_u8(_ptr(src), len(src), _i64(starts), _i64(lens),
+                             len(starts), _ptr(out))
+    return out[:total] if got == total else None
+
+
+def _gather_rows_py(src: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """Numpy twin of gather_rows."""
+    src = np.asarray(src, dtype=np.uint8)
+    starts = np.asarray(starts, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    if not _gather_plan_ok(len(src), starts, lens):
+        return None
+    offsets = np.repeat(starts - np.cumsum(lens) + lens, lens)
+    return src[offsets + np.arange(int(lens.sum()), dtype=np.int64)]
+
+
+def parse_ints(src: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+    """Signed decimal rows [starts[r], ends[r]) of a uint8 buffer as
+    int64, in one pass with no padded digit matrix.  Returns None when a
+    row is empty, holds a non-digit after its sign, has more than 18
+    digits or lies out of bounds: the caller then takes the checked numpy
+    path, which raises the FormatException with its offsets."""
+    lib = _require()
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    out = np.empty(len(starts), dtype=np.int64)
+    status = lib.parse_ints(_ptr(src), len(src), _i64(starts), _i64(ends),
+                            len(starts), _i64(out))
+    return out if status == 0 else None
+
+
+def _parse_ints_py(src: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+    """Numpy twin of parse_ints (the same rows give None)."""
+    src = np.asarray(src, dtype=np.uint8)
+    starts = np.asarray(starts, dtype=np.int64)
+    ends = np.asarray(ends, dtype=np.int64)
+    if not len(starts):
+        return np.empty(0, dtype=np.int64)
+    if starts.min() < 0 or ends.max() > len(src) or np.any(ends <= starts):
+        return None
+    first = src[starts]
+    neg = first == ord("-")
+    digits_start = starts + (neg | (first == ord("+")))
+    n_digits = ends - digits_start
+    if np.any(n_digits <= 0) or np.any(n_digits > 18):
+        return None
+    width = int(n_digits.max())
+    # right-aligned (rows, width) digit matrix, zero-padded on the left
+    idx = ends[:, None] - width + np.arange(width, dtype=np.int64)
+    inside = idx >= digits_start[:, None]
+    codes = src[np.where(inside, idx, 0)].astype(np.int64) - ord("0")
+    if np.any(inside & ((codes < 0) | (codes > 9))):
+        return None
+    codes = np.where(inside, codes, 0)
+    values = codes @ (10 ** np.arange(width - 1, -1, -1, dtype=np.int64))
+    return np.where(neg, -values, values)

@@ -6,11 +6,9 @@
   of the k-mer kernels (ops/resident.py).
 - No ndarray subclassing: explicit ``__array_ufunc__`` /
   ``__array_function__`` interception on a plain object.
-
-The one difference from the JAX package: a RaggedView gather always takes
-numpy's index plan (the JAX package hands long byte columns to a native
-memcpy, which the port's host library does not carry); the result is the
-same.
+- A RaggedView gather of more than 1024 byte rows (the columns of the
+  delimited readers) takes the host library's one-pass row copy
+  (native.gather_rows); other gathers take numpy's index plan.
 """
 from __future__ import annotations
 
@@ -138,6 +136,20 @@ class RaggedView:
         return RaggedShape(self.lengths)
 
 
+def _gather_view(flat: np.ndarray, view: RaggedView) -> np.ndarray:
+    """The rows of `view` from `flat`, packed: byte columns of more than
+    1024 rows in one native memcpy pass, the rest (and a plan with rows
+    out of bounds) by numpy's index plan."""
+    if flat.dtype.itemsize == 1 and flat.flags["C_CONTIGUOUS"] and \
+            len(view.starts) > 1024:
+        from .. import native
+        gathered = native.gather_rows(flat.view(np.uint8), view.starts,
+                                      view.lengths)
+        if gathered is not None:
+            return gathered.view(flat.dtype)
+    return flat[view.get_flat_indices()]
+
+
 def _build_from_nested(data) -> tuple:
     rows = [np.asarray(row).ravel() for row in data]
     lengths = np.array([len(r) for r in rows], dtype=np.int64)
@@ -172,7 +184,7 @@ class RaggedArray:
         else:
             flat = np.asarray(data)
             if isinstance(shape, RaggedView):
-                flat = flat.ravel()[shape.get_flat_indices()]
+                flat = _gather_view(flat.ravel(), shape)
                 rshape = shape.get_shape()
             else:
                 flat = flat.ravel()

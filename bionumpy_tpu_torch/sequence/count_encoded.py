@@ -1,10 +1,6 @@
 """Label-space counting (the port's copy of
 bionumpy_tpu/sequence/count_encoded.py).
 
-EncodedCounts.proportion_matrix needs the JAX package's io/matrix_dump and
-io/strops, which the port has not copied yet: it raises
-NotImplementedError (ROADMAP queue 1, the io/ item).
-
 The axis=-1 per-row count avoids the reference's per-row Python
 bincount loop (count_encoded.py:176) by one flat bincount over
 row_index * n_labels + value.
@@ -17,6 +13,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..encoded_array import EncodedArray, EncodedRaggedArray
+from ..io.matrix_dump import Matrix
 from ..ragged import RaggedArray
 
 
@@ -81,11 +78,8 @@ class EncodedCounts:
         return np.where(s > 0, self.counts / s, 0)
 
     @property
-    def proportion_matrix(self):
-        raise NotImplementedError(
-            "proportion_matrix needs io/matrix_dump and io/strops, which are "
-            "not ported yet (ROADMAP queue 1, the io/ readers and buffers); "
-            "use .proportions and .alphabet")
+    def proportion_matrix(self) -> Matrix:
+        return Matrix(self.proportions, col_names=self.alphabet)
 
     def get_count_for_label(self, label: str) -> int:
         return sum(np.sum(self.counts[..., self.alphabet.index(c)])

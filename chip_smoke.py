@@ -14,8 +14,10 @@ file; the user-level k-mer and motif API over the motif job's reads as
 one EncodedRaggedArray; bench config 3's minimizer + GC-track job over
 97 M seeded bases; bench config 1 (gzip FASTQ -> per-base composition)
 over the headline file; codon translation of the motif job's reads; and
-the checksum and dense-count k-mer ops at one full batch.  Phases, each
-of which raises on failure:
+the checksum and dense-count k-mer ops at one full batch; and the file
+layer (bnp.open) feeding the k-mer, motif, minimizer and translation
+calls chunk by chunk, with the VCF and BED readers and writers at bench
+config 5's scale.  Phases, each of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -97,6 +99,29 @@ of which raises on failure:
                hash_checksum against a numpy recount; kmer_count_small
                (k = 12) against kmer_count_small_packed; each function's
                kernel launches reset before it and held to its route
+ 15. open-fastq  the reference's streaming idiom over phase 5's file:
+               count_entries, then bnp.open(path).read_chunks() at the
+               default min_chunk_size and at 2^26 bytes, each chunk's
+               sequences as one DNAEncoding array through count_kmers(s,
+               31) and get_motif_matches; the summed counts must equal
+               phase 7's, the matches in chunk order phase 10's, each chunk
+               must upload once and launch kernels 1 and 3 once; prints
+               both walls, Mbases/s, chunks, the host split (read + parse,
+               the device calls, the host merge of the tables), a
+               profiled run's busy time and idle share, the peak device
+               memory and phase 5's wall
+ 16. open-config3  bench config 3 from a file: phase 11's base genome as
+               a gzip multi-line FASTA of sacCer3's 17 names and lengths,
+               read with MultiLineFastaBuffer, change_encoding to
+               ACGTnEncoding, % 4, the 7 strains, count_minimizers_with_gc;
+               names and lengths as written, table and bins phase 11's
+ 17. open-records  a seeded 8-member sites-only VCF of 773,688 records
+               read back as written with the SNVs counted; 2 M BED
+               intervals written, read back equal and rewritten
+               byte-identical; phase 13's reads as a FASTA translated
+               chunk by chunk on the card into a .fa that reads back as
+               phase 13's proteins; prints each read's and write's seconds
+               and records/s
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -140,6 +165,9 @@ SENTINEL = (1 << 63) - 1
 # config 3: sacCer3's 17 chromosome lengths (UCSC sacCer3.chrom.sizes, in
 # chrI..chrXVI, chrM order), seeded bases, 7 strain copies with 0.1%
 # substitutions as bench.py makes them; k = 21, 10 k-mers per window
+SACCER3_NAMES = tuple(f"chr{r}" for r in (
+    "I", "II", "III", "IV", "V", "VI", "VII", "VIII", "IX", "X", "XI", "XII",
+    "XIII", "XIV", "XV", "XVI", "M"))
 SACCER3_SIZES = (230218, 813184, 316620, 1531933, 576874, 270161, 1090940,
                  562643, 439888, 745751, 666816, 1078177, 924431, 784333,
                  1091291, 948066, 85779)
@@ -274,12 +302,23 @@ def numpy_minimizer_table(flat, lengths, k: int, window: int):
     return uniq, counts.astype(np.int64)
 
 
+def base_genome(seed: int) -> np.ndarray:
+    """Config 3's base genome: seeded codes of sacCer3's total length."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 4, sum(SACCER3_SIZES)).astype(np.uint8)
+
+
 def strain_genome(seed: int):
     """Config 3's input: a seeded base genome of sacCer3's chromosome
     lengths and N_STRAINS - 1 copies of it with 0.1% seeded
     substitutions (bench.py's strains), as (flat codes, row lengths)."""
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 4, sum(SACCER3_SIZES)).astype(np.uint8)
+    return strains_of(base_genome(seed), np.array(SACCER3_SIZES, np.int64))
+
+
+def strains_of(base: np.ndarray, base_lengths: np.ndarray):
+    """`base` and N_STRAINS - 1 copies of it with 0.1% seeded
+    substitutions, as bench.py's config3 makes them: (flat codes, row
+    lengths)."""
     strains = [base]
     for v in range(1, N_STRAINS):
         vrng = np.random.default_rng(2000 + v)
@@ -287,8 +326,7 @@ def strain_genome(seed: int):
         pos = np.flatnonzero(vrng.random(len(mut)) < 0.001)
         mut[pos] = (mut[pos] + vrng.integers(1, 4, len(pos))) % 4
         strains.append(mut)
-    return (np.concatenate(strains),
-            np.tile(np.array(SACCER3_SIZES, np.int64), N_STRAINS))
+    return np.concatenate(strains), np.tile(base_lengths, N_STRAINS)
 
 
 # ---- timing ---------------------------------------------------------------
@@ -780,7 +818,7 @@ def phase_motif(dev, workdir: str, variants, lengths):
     log(f"[motif] split: {bt.instrument.summary(total=wall)}")
     log("[motif] stages: " + json.dumps(bt.instrument.report()))
     profile_job(run, "motif")
-    return launches, (pwm, threshold, rows, offs)
+    return launches, (pwm, threshold, rows, offs), wall
 
 
 def device_times(run):
@@ -974,7 +1012,7 @@ def phase_user_api(dev, variants, lengths):
     log("[user-api] " + json.dumps({
         "seconds": times, "launches": launches, "uploads": uploads,
         "peak_device_bytes": peak, "gpu": gpu_line()}))
-    return launches, seqs
+    return launches, seqs, c31
 
 
 def phase_motif_encoded(dev, seqs, motif, variants, lengths):
@@ -984,7 +1022,7 @@ def phase_motif_encoded(dev, seqs, motif, variants, lengths):
     variant's float32 window scores (numpy_pwm_windows, the kernel's add
     order) as float64, and the array must still count one upload; the
     two calls once more under the profiler.  Returns the pwm_scores
-    launches of the two timed calls."""
+    launches of the two timed calls and the matches as (rows, offsets)."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch.ops import pwm_kernels as pk
     from bionumpy_tpu_torch.ops import resident
@@ -1034,7 +1072,7 @@ def phase_motif_encoded(dev, seqs, motif, variants, lengths):
         "device_busy_ms": prof.get("device_busy_ms"),
         "device_idle_share": prof.get("device_idle_share"),
         "peak_device_bytes": peak, "gpu": gpu_line()}))
-    return launches
+    return launches, (rows, np.asarray(matches.ravel()))
 
 
 def phase_minimizers_fastq(dev, workdir: str, variants, lengths):
@@ -1104,7 +1142,7 @@ def phase_minimizers_gc(dev):
     one with n_chunks=4, each profiled once more.  Table and bins must
     equal a numpy recount; each run must upload each base once and
     launch kmer_keys.  Returns the launches of the timed and the chunked
-    run."""
+    run, and the timed run's (table, GC bins)."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     from bionumpy_tpu_torch.ops import resident
@@ -1157,6 +1195,8 @@ def phase_minimizers_gc(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check(result, f"n_chunks={n_chunks}")
+        if n_chunks == 1:
+            whole = result
         launches = dict(kk.LAUNCHES)
         if launches["kmer_keys_kernel"] < 1:
             raise AssertionError("kmer_keys_kernel never launched")
@@ -1176,7 +1216,7 @@ def phase_minimizers_gc(dev):
     log("[minimizers-gc] " + json.dumps({
         "whole": out[1], "chunks_4": out[4], "recount_s": recount,
         "gpu": gpu_line()}))
-    return out[1]["launches"], out[4]["launches"]
+    return out[1]["launches"], out[4]["launches"], whole
 
 
 def phase_checksum(dev, counts, variants, lengths):
@@ -1350,7 +1390,7 @@ def phase_translate(dev, variants, lengths):
     recount of the codon table.  Then lut_gather, encode_with_validation
     (with no invalid byte and with one planted) and composition_counts at
     the full 112.5 M positions against numpy.  Returns the gather's row
-    of the torch-ops line."""
+    of the torch-ops line, the codon-cut reads and their proteins."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch.encodings import DNAEncoding
     from bionumpy_tpu_torch.ops import seq
@@ -1425,7 +1465,7 @@ def phase_translate(dev, variants, lengths):
     log("[translate] " + json.dumps({
         "seconds": times, "peak_device_bytes": peak, "gather": row,
         "gpu": gpu_line()}))
-    return row
+    return row, seqs, proteins
 
 
 def phase_kmer_ops(dev, batch):
@@ -1523,6 +1563,371 @@ def phase_kmer_ops(dev, batch):
     return total
 
 
+def phase_open_fastq(dev, workdir: str, lengths, c31, matches, motif,
+                     motif_wall):
+    """The reference's streaming idiom over phase 5's file (512 gzip
+    members, 512,000 reads): count_entries, then bnp.open(...).
+    read_chunks() at the default min_chunk_size and at 2^26 bytes, each
+    chunk's sequences as one DNAEncoding array through count_kmers(s, 31)
+    and get_motif_matches.  The summed counts must equal phase 7's, the
+    matches in chunk order phase 10's; each chunk must upload once and
+    launch kernels 1 and 3 once.  Returns the launches of both runs."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.ops import resident
+    pwm, threshold = motif[0], motif[1]
+    path = os.path.join(workdir, "motif.fq.gz")
+    n_reads = MOTIF_MEMBERS * N_READS
+    t0 = time.perf_counter()
+    n_entries = bt.count_entries(path)
+    count_s = time.perf_counter() - t0
+    if n_entries != n_reads:
+        raise AssertionError(f"count_entries gave {n_entries}, the file "
+                             f"holds {n_reads} reads")
+
+    def run(min_chunk_size):
+        """(counts, rows, offsets, n_chunks, n_bases, {read_parse_s,
+        device_calls_s, merge_s}): the seconds of the host read + parse,
+        of the two device calls and of the host merge of the chunk's table
+        into the running one."""
+        total, rows, offs = 0, [], []
+        n_chunks = n_bases = row0 = 0
+        split = dict.fromkeys(("read_parse_s", "device_calls_s", "merge_s"),
+                              0.0)
+        chunks = iter(bt.open(path).read_chunks(min_chunk_size))
+        while True:
+            t = time.perf_counter()
+            chunk = next(chunks, None)
+            if chunk is None:
+                break
+            s = bt.as_encoded_array(chunk.sequence, bt.DNAEncoding)
+            t1 = time.perf_counter()
+            counts = bt.count_kmers(s, K, device=dev)
+            m = bt.get_motif_matches(s, pwm, threshold, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            total = total + counts
+            split["read_parse_s"] += t1 - t
+            split["device_calls_s"] += t2 - t1
+            split["merge_s"] += time.perf_counter() - t2
+            rows.append(row0 + np.repeat(np.arange(len(m)), m.lengths))
+            offs.append(np.asarray(m.ravel()))
+            row0 += len(s)
+            n_bases += int(np.sum(s.lengths))
+            n_chunks += 1
+        return (total, np.concatenate(rows), np.concatenate(offs), n_chunks,
+                n_bases, split)
+
+    def check(out, tag):
+        total, rows, offs, n_chunks, n_bases = out[:5]
+        if not (np.array_equal(total.label_codes, c31.label_codes)
+                and np.array_equal(total.counts, c31.counts)):
+            raise AssertionError(f"the {tag} chunked 31-mer counts differ "
+                                 f"from phase 7's")
+        if not (np.array_equal(rows, matches[0])
+                and np.array_equal(offs, matches[1])):
+            raise AssertionError(f"the {tag} chunked matches differ from "
+                                 f"phase 10's")
+        if n_bases != MOTIF_MEMBERS * int(lengths.sum()):
+            raise AssertionError(f"{tag}: {n_bases} bases read")
+
+    run(OPEN_CHUNK_SIZES["default"])  # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    for tag, size in OPEN_CHUNK_SIZES.items():
+        resident.reset_transfer_counters()
+        kk.reset_launches()
+        pk.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = run(size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**kk.LAUNCHES, **pk.LAUNCHES}
+        check(result, tag)
+        n_chunks, n_bases = result[3], result[4]
+        if resident.TRANSFER_COUNT != n_chunks:
+            raise AssertionError(f"{tag}: {resident.TRANSFER_COUNT} uploads "
+                                 f"for {n_chunks} chunks")
+        if launches["kmer_keys_kernel"] != n_chunks or \
+                launches["pwm_scores_kernel"] != n_chunks:
+            raise AssertionError(f"{tag}: launches {launches} for "
+                                 f"{n_chunks} chunks")
+        out[tag] = {
+            "min_chunk_size": size, "wall_s": wall,
+            "mbases_per_s": n_bases / wall / 1e6, "n_chunks": n_chunks,
+            **result[5],
+            "launches": launches, "uploads": resident.TRANSFER_COUNT,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    prof = profile_job(lambda: run(OPEN_CHUNK_SIZES["default"]),
+                       "open-fastq")
+    log(f"[open-fastq] exact: count_entries {n_entries}; "
+        f"{len(c31.label_codes)} distinct 31-mers and {len(matches[0])} "
+        f"matches equal phases 7 and 10's, at {out['default']['n_chunks']} "
+        f"and {out['large']['n_chunks']} chunks, one upload a chunk")
+    log("[open-fastq] " + json.dumps({
+        "count_entries_s": count_s, **out,
+        "device_busy_ms": prof.get("device_busy_ms"),
+        "device_idle_share": prof.get("device_idle_share"),
+        "motif_fastq_wall_s": motif_wall, "gpu": gpu_line()}))
+    return out["default"]["launches"], out["large"]["launches"]
+
+
+def write_fasta_gz(path: str, names, codes: np.ndarray, lengths,
+                   line: int = 50) -> None:
+    """Multi-line FASTA of the ACGT `codes` cut into rows of `lengths`,
+    `line` bases a line, as one gzip member (UCSC's .fa.gz layout)."""
+    letters = np.frombuffer(b"ACGT", np.uint8)[codes]
+    parts, start = [], 0
+    for name, n in zip(names, lengths):
+        seq = letters[start: start + n]
+        start += n
+        full = n // line * line
+        body = np.hstack([seq[:full].reshape(-1, line),
+                          np.full((full // line, 1), 10, np.uint8)])
+        parts.append(b">%s\n" % name.encode() + body.tobytes())
+        if n > full:
+            parts.append(seq[full:].tobytes() + b"\n")
+    with open(path, "wb") as f:
+        f.write(gzip.compress(b"".join(parts), 6, mtime=0))
+
+
+def phase_open_config3(dev, workdir: str, want):
+    """Bench config 3 as bench.py drives it, from a file: phase 11's base
+    genome written as a gzip multi-line FASTA of sacCer3's 17 chromosome
+    names and lengths, read with MultiLineFastaBuffer, change_encoding to
+    ACGTnEncoding, % 4, the 7 strains made as phase 11 makes them, then
+    count_minimizers_with_gc.  The names and lengths must be those
+    written, the table and bins phase 11's.  Returns kernel 1's
+    launches."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.encodings.alphabet_encoding import ACGTnEncoding
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    path = os.path.join(workdir, "genome.fa.gz")
+    base = base_genome(SEED)
+    t0 = time.perf_counter()
+    write_fasta_gz(path, SACCER3_NAMES, base, SACCER3_SIZES)
+    log(f"[open-config3] wrote {len(base)} bases, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB gzip, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kk.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fa = bt.open(path, buffer_type=bt.MultiLineFastaBuffer).read()
+    read_s = time.perf_counter() - t0
+    seq = bt.change_encoding(fa.sequence, ACGTnEncoding)
+    base_flat = np.asarray(seq.ravel().raw()) % 4
+    flat, lengths = strains_of(base_flat, np.asarray(seq.lengths))
+    seqs = bt.EncodedRaggedArray(bt.EncodedArray(flat, bt.DNAEncoding),
+                                 lengths)
+    table, gc = bt.count_minimizers_with_gc(
+        seqs, MIN_K, MIN_WINDOW, cap=1 << 22, bin_size=GC_BIN,
+        chunk_cap=1 << 22, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kk.LAUNCHES)
+    names = [str(n) for n in fa.name.tolist()]
+    if names != list(SACCER3_NAMES) or not np.array_equal(
+            seq.lengths, SACCER3_SIZES) or not np.array_equal(base_flat,
+                                                              base):
+        raise AssertionError(f"the FASTA read back as {names} "
+                             f"{np.asarray(seq.lengths).tolist()}, not as "
+                             f"written")
+    want_table, want_gc = want
+    if not (np.array_equal(table.label_codes, want_table.label_codes)
+            and np.array_equal(table.counts, want_table.counts)
+            and np.array_equal(gc, want_gc)):
+        raise AssertionError("config 3 from the file differs from phase 11")
+    if launches["kmer_keys_kernel"] < 1:
+        raise AssertionError("kmer_keys_kernel never launched")
+    log(f"[open-config3] exact: 17 names and lengths as written; "
+        f"{len(table.label_codes)} distinct minimizers and {len(gc)} GC "
+        f"bins equal phase 11's")
+    log("[open-config3] " + json.dumps({
+        "read_s": read_s, "wall_s": wall,
+        "mbases_per_s": len(flat) / wall / 1e6, "n_bases": len(flat),
+        "launches": launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "gpu": gpu_line()}))
+    return launches
+
+
+VCF_MEMBERS, VCF_RECORDS, VCF_SNVS = 8, 96_711, 83_663  # 773,688; 669,304
+CHR21, CHR22 = 46_709_983, 50_818_468
+BED_INTERVALS = 2_000_000
+# phase 15's two min_chunk_size values: read_chunks' default and 2^26
+OPEN_CHUNK_SIZES = {"default": 5_000_000, "large": 1 << 26}
+
+
+def seeded_vcf_body(seed: int):
+    """One member's sites-only records on chr21 and chr22 in bench config
+    5's shape (VCF_SNVS SNVs among VCF_RECORDS, the rest 1-5 base
+    insertions and deletions), sorted by position.  Returns (text,
+    chromosomes, 1-based positions, refs, alts)."""
+    rng = np.random.default_rng(seed)
+    n = VCF_RECORDS
+    on21 = np.arange(n) < n * CHR21 // (CHR21 + CHR22)
+    pos = np.where(on21, rng.integers(1, CHR21 - 8, n),
+                   rng.integers(1, CHR22 - 8, n))
+    order = np.lexsort((pos, ~on21))
+    on21, pos = on21[order], pos[order]
+    kind = rng.permutation(np.repeat([0, 1, 2], [
+        VCF_SNVS, (n - VCF_SNVS) // 2, n - VCF_SNVS - (n - VCF_SNVS) // 2]))
+    letters = np.array(list("ACGT"))
+    first = rng.integers(0, 4, n)
+    other = (first + rng.integers(1, 4, n)) % 4
+    extra = rng.integers(1, 6, n)
+    tails = ["".join(letters[rng.integers(0, 4, e)]) for e in extra]
+    refs, alts = [], []
+    for i in range(n):
+        a = letters[first[i]]
+        if kind[i] == 0:
+            refs.append(a)
+            alts.append(letters[other[i]])
+        elif kind[i] == 1:
+            refs.append(a + tails[i])
+            alts.append(a)
+        else:
+            refs.append(a)
+            alts.append(a + tails[i])
+    chroms = np.where(on21, "chr21", "chr22")
+    ac = rng.integers(1, 5008, n)
+    text = "".join(f"{c}\t{p}\trs{i}\t{r}\t{a}\t100\tPASS\tAC={x};AN=5008\n"
+                   for i, (c, p, r, a, x) in enumerate(zip(
+                       chroms, pos, refs, alts, ac)))
+    return text.encode(), chroms.tolist(), pos, refs, alts
+
+
+VCF_HEADER = (b"##fileformat=VCFv4.2\n"
+              b"##INFO=<ID=AC,Number=1,Type=Integer,Description=\"count\">\n"
+              b"##INFO=<ID=AN,Number=1,Type=Integer,Description=\"total\">\n"
+              b"##contig=<ID=chr21,length=46709983>\n"
+              b"##contig=<ID=chr22,length=50818468>\n"
+              b"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+
+
+def _strings(column) -> list:
+    """A string column (StringArray or EncodedRaggedArray) as str."""
+    return [str(x) for x in column.tolist()]
+
+
+def phase_open_records(dev, workdir: str, reads, proteins):
+    """The host formats at bench config 5's scale, and translation file
+    to file.  A seeded 8-member sites-only VCF (773,688 records) read
+    back through bnp.open: every chromosome, position, ref and alt as
+    written, the SNVs counted exactly; 2 M seeded BED intervals on chr21
+    written with the port's writer and read back equal, a second write
+    byte-identical; phase 13's codon-cut reads written as a two-line
+    FASTA, translated chunk by chunk on the card into a .fa (the
+    reference's translate example), read back equal to phase 13's
+    proteins row by row.  Prints each read's and write's seconds and
+    records/s.  Returns the kernel launches (none: no kernel of the port
+    is on these paths)."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.datatypes import Interval, SequenceEntry
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    times = {}
+    kk.reset_launches()
+    pk.reset_launches()
+
+    def timed(name, fn, n_records):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        times[name] = {"s": s, "records_per_s": n_records / s}
+        return out
+
+    # VCF: member 0 the header and the body, members 1-7 the body again
+    body, chroms, pos, refs, alts = seeded_vcf_body(SEED)
+    vcf_path = os.path.join(workdir, "sites.vcf.gz")
+    member = gzip.compress(body, 6, mtime=0)
+    with open(vcf_path, "wb") as f:
+        f.write(gzip.compress(VCF_HEADER + body, 6, mtime=0))
+        for _ in range(VCF_MEMBERS - 1):
+            f.write(member)
+    n_vcf = VCF_MEMBERS * VCF_RECORDS
+
+    def read_sites():
+        """The read as config 5 needs it: the lazy records and the four
+        columns it uses."""
+        vcf = bt.open(vcf_path).read()
+        return len(vcf), (vcf.chromosome, vcf.position, vcf.ref_seq,
+                          vcf.alt_seq)
+
+    n, (chrom, position, ref, alt) = timed("vcf_read", read_sites, n_vcf)
+    if not (n == n_vcf and _strings(chrom) == chroms * VCF_MEMBERS
+            and np.array_equal(position, np.tile(pos - 1, VCF_MEMBERS))
+            and _strings(ref) == refs * VCF_MEMBERS
+            and _strings(alt) == alts * VCF_MEMBERS):
+        raise AssertionError("the VCF read back differs from what was "
+                             "written")
+    n_snv = int(np.count_nonzero((np.asarray(ref.lengths) == 1)
+                                 & (np.asarray(alt.lengths) == 1)))
+    if n_snv != VCF_MEMBERS * VCF_SNVS:
+        raise AssertionError(f"{n_snv} SNVs, {VCF_MEMBERS * VCF_SNVS} "
+                             f"written")
+    del chrom, position, ref, alt
+
+    # BED: 2 M intervals on chr21, as bench.py's dense pileup scale
+    rng = np.random.default_rng(5)
+    n_iv = BED_INTERVALS
+    starts = rng.integers(0, CHR21 - 600, n_iv).astype(np.int64)
+    stops = starts + rng.integers(100, 600, n_iv)
+    intervals = Interval(["chr21"] * n_iv, starts, stops)
+    bed_paths = [os.path.join(workdir, f"iv{i}.bed") for i in (1, 2)]
+
+    def write(path, data):
+        with bt.open(path, "w") as f:
+            f.write(data)
+
+    timed("bed_write", lambda: write(bed_paths[0], intervals), n_iv)
+    # eager, so that the second write formats every field again
+    bed = timed("bed_read", lambda: bt.open(bed_paths[0], lazy=False).read(),
+                n_iv)
+    if not (_strings(bed.chromosome) == ["chr21"] * n_iv
+            and np.array_equal(bed.start, starts)
+            and np.array_equal(bed.stop, stops)):
+        raise AssertionError("the BED read back differs from what was "
+                             "written")
+    timed("bed_write_again", lambda: write(bed_paths[1], bed), n_iv)
+    with open(bed_paths[0], "rb") as a, open(bed_paths[1], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the second BED write differs in bytes")
+    del bed, intervals
+
+    # translation file to file (examples/translate.py)
+    in_fa, out_fa = (os.path.join(workdir, f) for f in ("reads.fa",
+                                                          "proteins.fa"))
+    n_reads = len(reads)
+    names = [f"r{i}" for i in range(n_reads)]
+    timed("fasta_write", lambda: write(
+        in_fa, SequenceEntry(names, reads)), n_reads)
+
+    def translate_file():
+        with bt.open(out_fa, "w") as out:
+            for chunk in bt.open(in_fa).read_chunks():
+                out.write(bt.translate_dna_to_protein(chunk, device=dev))
+
+    timed("translate_file", translate_file, n_reads)
+    back = timed("protein_read", lambda: bt.open(out_fa).read(), n_reads)
+    if not (_strings(back.name) == names
+            and np.array_equal(back.sequence.lengths, proteins.lengths)
+            and np.array_equal(back.sequence.ravel().raw(),
+                               proteins.ravel().raw())):
+        raise AssertionError("the translated file differs from phase 13's "
+                             "proteins")
+    launches = {**kk.LAUNCHES, **pk.LAUNCHES}
+    log(f"[open-records] exact: {n_vcf} VCF records ({n_snv} SNVs), {n_iv} "
+        f"BED intervals (rewritten byte-identical), {n_reads} proteins "
+        f"equal phase 13's")
+    log("[open-records] " + json.dumps({**times, "launches": launches,
+                                        "gpu": gpu_line()}))
+    return launches
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1552,25 +1957,37 @@ def main() -> int:
         parse_launches, auto_launches = run_phase(
             "device-parse", phase_device_parse, dev, workdir, counts, stats,
             stages)
-        motif_launches, motif = run_phase(
+        motif_launches, motif, motif_wall = run_phase(
             "motif", phase_motif, dev, workdir, variants, lengths)
         mfq_launches = run_phase("minimizers-fastq", phase_minimizers_fastq,
                                  dev, workdir, variants, lengths)
         op_rows = [run_phase("composition", phase_composition, dev, workdir,
                              variants, lengths)]
+        api_launches, seqs, c31 = run_phase("user-api", phase_user_api, dev,
+                                            variants, lengths)
+        enc_launches, matches = run_phase(
+            "motif-encoded", phase_motif_encoded, dev, seqs, motif, variants,
+            lengths)
+        del seqs
+        open_launches, open_large_launches = run_phase(
+            "open-fastq", phase_open_fastq, dev, workdir, lengths, c31,
+            matches, motif, motif_wall)
+        del c31, matches
+        sum_launches = run_phase("checksum", phase_checksum, dev, counts,
+                                 variants, lengths)
+        gc_launches, chunked_launches, gc_result = run_phase(
+            "minimizers-gc", phase_minimizers_gc, dev)
+        config3_launches = run_phase("open-config3", phase_open_config3, dev,
+                                     workdir, gc_result)
+        del gc_result
+        row, reads, proteins = run_phase("translate", phase_translate, dev,
+                                         variants, lengths)
+        op_rows.append(row)
+        records_launches = run_phase("open-records", phase_open_records, dev,
+                                     workdir, reads, proteins)
+        del reads, proteins
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    api_launches, seqs = run_phase("user-api", phase_user_api, dev,
-                                   variants, lengths)
-    enc_launches = run_phase("motif-encoded", phase_motif_encoded, dev,
-                             seqs, motif, variants, lengths)
-    del seqs
-    sum_launches = run_phase("checksum", phase_checksum, dev, counts,
-                             variants, lengths)
-    gc_launches, chunked_launches = run_phase("minimizers-gc",
-                                              phase_minimizers_gc, dev)
-    op_rows.append(run_phase("translate", phase_translate, dev, variants,
-                             lengths))
     ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
                              batch_inputs(SEED))
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
@@ -1582,7 +1999,11 @@ def main() -> int:
         "minimizers_gc": gc_launches["kmer_keys_kernel"],
         "minimizers_gc_4_chunks": chunked_launches["kmer_keys_kernel"],
         "minimizers_fastq": mfq_launches["kmer_keys_kernel"],
-        "kmer_ops": ops_launches["kmer_keys_kernel"]}
+        "kmer_ops": ops_launches["kmer_keys_kernel"],
+        "open_fastq": open_launches["kmer_keys_kernel"],
+        "open_fastq_large_chunks": open_large_launches["kmer_keys_kernel"],
+        "open_config3": config3_launches["kmer_keys_kernel"],
+        "open_records": records_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],
@@ -1590,7 +2011,11 @@ def main() -> int:
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     rows[2]["launches_by_path"] = {
         "motif": motif_launches["pwm_scores_kernel"],
-        "motif_encoded": enc_launches["pwm_scores_kernel"]}
+        "motif_encoded": enc_launches["pwm_scores_kernel"],
+        "open_fastq": open_launches["pwm_scores_kernel"],
+        "open_fastq_large_chunks": open_large_launches[
+            "pwm_scores_kernel"],
+        "open_records": records_launches["pwm_scores_kernel"]}
     print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

@@ -158,8 +158,10 @@ def test_kmer_labels_and_proportion_matrix():
     assert g.alphabet == w.alphabet and len(g.alphabet) == 16
     np.testing.assert_array_equal(g.counts, w.counts)
     assert g.as_dict().keys() == w.as_dict().keys()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        g.proportion_matrix
+    got, want = g.proportion_matrix, w.proportion_matrix
+    assert type(got).__name__ == type(want).__name__ == "Matrix"
+    np.testing.assert_array_equal(got.data, want.data)
+    assert got.col_names == want.col_names and got.row_names is None
 
 
 def test_ragged_array_matches_jax():

@@ -641,3 +641,39 @@ def test_translate_dna_to_protein_on_card_matches_cpu(cuda, n_reads):
         [(f"r{i}", r) for i, r in enumerate(reads)])
     got = bt.translate_dna_to_protein(entries, device=cuda)
     assert got.sequence.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [1, 4])
+def test_chunked_count_kmers_from_a_file_on_card_matches_cpu(cuda, tmp_path,
+                                                             members):
+    """The reference's streaming idiom over a small gzip FASTQ: each
+    chunk of bnp.open(...).read_chunks() counted on the card, summed,
+    equals device="cpu", with kernel 1 launched once a chunk."""
+    import gzip
+
+    import bionumpy_tpu_torch as bt
+    reads = _reads(7, 1200)
+    step = len(reads) // members
+    path = tmp_path / "reads.fq.gz"
+    path.write_bytes(b"".join(
+        gzip.compress(_fastq_bytes(reads[i: i + step]), mtime=0)
+        for i in range(0, len(reads), step)))
+
+    def chunked(device):
+        return [bt.count_kmers(bt.as_encoded_array(c.sequence,
+                                                   bt.DNAEncoding), k,
+                               device=device)
+                for c in bt.open(str(path)).read_chunks(min_chunk_size=40_000)
+                for k in (31, 5)]
+
+    want = chunked("cpu")
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    got = chunked(cuda)
+    assert len(want) > 4
+    assert kk.LAUNCHES["kmer_keys_kernel"] - before == len(want)
+    total_got = sum(got[0::2])
+    total_want = sum(want[0::2])
+    assert np.array_equal(total_got.label_codes, total_want.label_codes)
+    assert np.array_equal(total_got.counts, total_want.counts)
+    assert np.array_equal(sum(got[1::2]).counts, sum(want[1::2]).counts)
