@@ -29,7 +29,12 @@ encodings, io/strops and io/regexp, bnpdataclass (with lazy record
 classes and io/dump_csv) and the record types of datatypes; the file
 layer (bnp.open / read / count_entries / open_indexed over the readers and
 writers of io/, with util/ and alignments/cigar), whose chunks feed the
-calls above.
+calls above; the stream layer (MultiStream, groupby, the bincount,
+histogram, mean and quantile folds), run-length arrays and interval
+arithmetic (arithmetics: pileups, with get_pileup_device on the card,
+boolean masks, jaccard and forbes), reverse complements
+(get_reverse_complement) and the whole-genome binned pileup of a BED file
+(pipeline.binned_pileup_bed, with genomic_data.GlobalOffset).
 """
 from . import instrument
 from .encoded_array import (EncodedArray, EncodedRaggedArray,
@@ -40,7 +45,7 @@ from .string_array import StringArray, as_string_array, string_array
 from .io.jaspar import read_jaspar_matrix
 from .io.motifs import read_motif
 from .ops.kmers import kmer_checksum_streamed
-from .pipeline import (AccOverflow, count_kmers_fastq,
+from .pipeline import (AccOverflow, binned_pileup_bed, count_kmers_fastq,
                        count_minimizers_fastq, get_motif_matches_fastq)
 from .sequence.count_encoded import (EncodedCounts, SparseEncodedCounts,
                                      count_encoded)
@@ -51,6 +56,9 @@ from .sequence.position_weight_matrix import (PWM, PositionWeightMatrix,
                                               get_motif_matches,
                                               get_motif_scores)
 from .sequence.translate import translate_dna_to_protein
+from .sequence.dna import get_reverse_complement
+from .streams import (MultiStream, bincount, groupby, histogram, mean,
+                      quantile, streamable)
 from .datatypes import (BamEntry, Bed6, GFFEntry, Interval, LocationEntry,
                         SAMEntry, SequenceEntry, SequenceEntryWithQuality,
                         VCFEntry)
@@ -62,6 +70,7 @@ from .io import (Bed6Buffer, BedBuffer, FastQBuffer, GFFBuffer,
                  SAMBuffer, TwoLineFastaBuffer, bnp_open, count_entries,
                  get_bufferclass_for_datatype, open_indexed, read)
 from .io.matrix_dump import Matrix
+from . import arithmetics
 
 open = bnp_open
 
@@ -82,4 +91,6 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_bufferclass_for_datatype", "TwoLineFastaBuffer",
            "FastQBuffer", "MultiLineFastaBuffer", "BedBuffer", "Bed6Buffer",
            "NarrowPeakBuffer", "GfaSequenceBuffer", "GFFBuffer",
-           "SAMBuffer"]
+           "SAMBuffer", "MultiStream", "bincount", "groupby", "histogram",
+           "mean", "quantile", "streamable", "get_reverse_complement",
+           "arithmetics", "binned_pileup_bed"]

@@ -28,6 +28,8 @@ get_motif_matches_fastq streams the same batches through the motif scan
 only the match positions, one batch late; count_minimizers_fastq streams
 them through the minimizer table (kmer_keys kernel + windowed min,
 ops/minimizers.py) and the same fold and fetch as the k-mer count.
+binned_pileup_bed reads a BED file, rebases its intervals onto one
+bin-aligned genome axis and runs one binned pileup (ops/tracks.py).
 """
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ import torch
 from . import native
 from .encodings import DNAEncoding
 from .encodings.kmer_encodings import KmerEncoding
+from .genomic_data.global_offset import GlobalOffset
 from .instrument import stage
+from .io.files import bnp_open
 from .io.pgzip import _inflate_segment, inflate_members, member_offsets
 from .ops.device import bucket_size, resolve_device
 from .ops.kmer_kernels import MAX_K
@@ -53,6 +57,7 @@ from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
 from .ops.minimizers import minimizer_sentinel_table_packed
 from .ops.parse import fastq_to_sparse_kmer_table
 from .ops.pwm import pwm_match_compact, pwm_scores_packed
+from .ops.tracks import binned_pileup
 from .parallel.sparse_parallel import merge_hash_tables
 from .sequence.count_encoded import SparseEncodedCounts
 
@@ -1311,6 +1316,76 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
              "n_windows": meta["n_kmers"]}
     return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
                                counts), stats
+
+
+def binned_pileup_bed(path: str, chromosome_sizes: dict,
+                      bin_size: int = 1000, mesh=None, device=None):
+    """Whole-genome BINNED coverage track from a BED(.gz) file on one
+    device: the intervals on the chromosomes of `chromosome_sizes` map to
+    concatenated-genome coordinates (GlobalOffset), rebased so that every
+    chromosome starts on a bin edge, and one binned_pileup
+    (ops/tracks.py) over all of them gives the covered-base count per bin;
+    the host fetches the bins once.
+
+    `device`: None is the card ("cuda"), which must be present; pass
+    "cpu" to run the plain torch ops on the host.  `mesh=` (multi-device)
+    is not ported yet.  Raises ValueError, as the JAX package does, when
+    the rebased span (bins x bin_size) passes int32: then no bin_size
+    helps (the span is at least the genome's size), and the call must be
+    split per chromosome.
+
+    Returns ({chromosome: int32 per-bin covered-base counts},
+    stats {n_intervals, n_bins}); equal to the JAX package's
+    binned_pileup_bed on the same file."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
+            "multi-device)")
+    device = resolve_device(device)
+    with stage("read"):
+        data = bnp_open(path).read()
+        keep = np.isin(np.asarray(data.chromosome.tolist()),
+                       list(chromosome_sizes))
+        data = data[keep]
+        offset = GlobalOffset(chromosome_sizes)
+        g_starts = offset.from_local_coordinates(
+            data.chromosome, np.asarray(data.start))
+        g_stops = g_starts + (np.asarray(data.stop) - np.asarray(data.start))
+    # per-chromosome bin ranges: bins never span chromosomes
+    names = list(chromosome_sizes)
+    sizes = np.array([chromosome_sizes[n] for n in names], np.int64)
+    bins_per = -(-sizes // bin_size)
+    bin_base = np.insert(np.cumsum(bins_per), 0, 0)
+    n_bins = int(bin_base[-1])
+    # remap global positions so every chromosome starts on a bin edge
+    chrom_base = np.insert(np.cumsum(sizes), 0, 0)
+    chrom_of = np.searchsorted(chrom_base, g_starts, side="right") - 1
+    rebased = (g_starts - chrom_base[chrom_of]
+               + bin_base[chrom_of] * bin_size)
+    rebased_stop = rebased + (g_stops - g_starts)
+    # the device arrays below are int32: a rebased span past 2^31
+    # (human-scale genomes at small bin_size) would wrap silently
+    span = int(bin_base[-1]) * bin_size
+    if span > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"binned_pileup_bed: rebased genome span {span} exceeds "
+            f"int32; raise bin_size or split the call per chromosome "
+            f"(each chromosome's own span stays within int32)")
+    n_iv = len(rebased)
+    with stage("H2D", n_bytes=8 * n_iv):
+        starts = torch.from_numpy(rebased.astype(np.int32)).to(device)
+        stops = torch.from_numpy(rebased_stop.astype(np.int32)).to(device)
+        valid = torch.ones(n_iv, dtype=torch.bool, device=device)
+    with stage("step"):
+        bins = binned_pileup(starts, stops, valid, n_bins, bin_size)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    with stage("D2H-table", n_bytes=4 * n_bins):
+        bins_h = bins.cpu().numpy()
+    out = {name: bins_h[bin_base[i]: bin_base[i + 1]]
+           for i, name in enumerate(names)}
+    stats = {"n_intervals": n_iv, "n_bins": n_bins}
+    return out, stats
 
 
 def merge_sorted_tables(h1, c1, h2, c2):

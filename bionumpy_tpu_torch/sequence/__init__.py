@@ -1,6 +1,8 @@
 """Sequence operations: k-mers, minimizers, count tables, position
-weight matrices and translation."""
+weight matrices, translation and reverse complements."""
 from .count_encoded import EncodedCounts, SparseEncodedCounts, count_encoded
+from .dna import (get_reverse_complement, get_sequences,
+                  get_strand_specific_sequences)
 from .kmers import KmerEncoder, count_kmers, get_kmers
 from .minimizers import (Minimizers, count_minimizers,
                          count_minimizers_with_gc, get_minimizers)
@@ -12,4 +14,6 @@ __all__ = ["count_kmers", "get_kmers", "get_minimizers", "count_minimizers",
            "count_minimizers_with_gc", "get_motif_scores",
            "get_motif_matches", "count_encoded", "EncodedCounts",
            "SparseEncodedCounts", "KmerEncoder", "Minimizers", "PWM",
-           "PositionWeightMatrix", "translate_dna_to_protein"]
+           "PositionWeightMatrix", "translate_dna_to_protein",
+           "get_reverse_complement", "get_strand_specific_sequences",
+           "get_sequences"]

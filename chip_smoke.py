@@ -17,7 +17,9 @@ over the headline file; codon translation of the motif job's reads; and
 the checksum and dense-count k-mer ops at one full batch; and the file
 layer (bnp.open) feeding the k-mer, motif, minimizer and translation
 calls chunk by chunk, with the VCF and BED readers and writers at bench
-config 5's scale.  Phases, each of which raises on failure:
+config 5's scale; and config 5's interval arithmetic (pileups, the binned
+pileup of a BED file, jaccard and forbes, the stream layer) with a
+reverse complement into the k-mer count.  Phases, each of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -122,6 +124,16 @@ config 5's scale.  Phases, each of which raises on failure:
                chunk by chunk on the card into a .fa that reads back as
                phase 13's proteins; prints each read's and write's seconds
                and records/s
+ 18. intervals  bench config 5's interval arithmetic: phase 17's 2 M chr21
+               fragments through get_pileup and get_pileup_device (dense,
+               binned at 100 and 1000) against a numpy recount, the two
+               pileup ops timed beside their bounds; 2 M more on chr22
+               into a gzip BED, binned_pileup_bed at 1000 and 100; jaccard
+               and forbes against 60,000 seeded peaks, == a numpy
+               boolean-mask recount; the stream reductions and groupby
+               over the file's chunks; get_reverse_complement of phase 7's
+               reads into count_kmers(., 31), phase 7's table with every
+               hash reverse-complemented, one upload and one launch
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -1872,10 +1884,8 @@ def phase_open_records(dev, workdir: str, reads, proteins):
     del chrom, position, ref, alt
 
     # BED: 2 M intervals on chr21, as bench.py's dense pileup scale
-    rng = np.random.default_rng(5)
     n_iv = BED_INTERVALS
-    starts = rng.integers(0, CHR21 - 600, n_iv).astype(np.int64)
-    stops = starts + rng.integers(100, 600, n_iv)
+    starts, stops = fragments(np.random.default_rng(5), n_iv, CHR21)
     intervals = Interval(["chr21"] * n_iv, starts, stops)
     bed_paths = [os.path.join(workdir, f"iv{i}.bed") for i in (1, 2)]
 
@@ -1928,6 +1938,288 @@ def phase_open_records(dev, workdir: str, reads, proteins):
     return launches
 
 
+PEAKS = 60_000                # phase 18's second interval set
+
+
+def fragments(rng, n: int, size: int):
+    """bench.py's dense-scale fragments: n starts below size - 600, each
+    100-599 bases long."""
+    starts = rng.integers(0, size - 600, n).astype(np.int64)
+    return starts, starts + rng.integers(100, 600, n)
+
+
+def numpy_depth(starts, stops, size: int) -> np.ndarray:
+    """int64 depth over [0, size) by a boundary bincount and a cumsum."""
+    diff = np.bincount(starts, minlength=size + 1) - \
+        np.bincount(stops, minlength=size + 1)
+    return np.cumsum(diff[:-1])
+
+
+def numpy_bins(depth: np.ndarray, bin_size: int) -> np.ndarray:
+    pad = (-len(depth)) % bin_size
+    return np.concatenate([depth, np.zeros(pad, depth.dtype)]).reshape(
+        -1, bin_size).sum(axis=1)
+
+
+def kmer_revcomp(hashes: np.ndarray, k: int) -> np.ndarray:
+    """The hash (sum code_j << 2j) of each k-mer's reverse complement."""
+    out = np.zeros_like(hashes)
+    for j in range(k):
+        code = (hashes >> np.uint64(2 * j)) & np.uint64(3)
+        out |= (np.uint64(3) - code) << np.uint64(2 * (k - 1 - j))
+    return out
+
+
+def phase_intervals(dev, workdir: str, seqs, c31):
+    """Bench config 5's interval arithmetic (bench.py:727-779) on the
+    card, every check exact.  (1) phase 17's 2 M chr21 fragments through
+    get_pileup (host RLE) and get_pileup_device (dense, as an RLE; binned
+    at 100 and 1000), each against a numpy recount, the two RLEs equal;
+    the two pileup ops timed beside their bounds.  (2) those fragments
+    and 2 M more on chr22 written as a gzip BED by the port's writer, then
+    binned_pileup_bed at 1000 and 100 against the recount.  (3) jaccard
+    and forbes of the 4 M fragments and 60,000 seeded peaks, both
+    sort_intervals-ed, == a numpy boolean-mask recount in the same
+    formula.  (4) mean, bincount, histogram and quantile of the fragment
+    lengths over bnp.open(bed).read_chunks() against numpy over the whole
+    file, and groupby(..., "chromosome") into get_pileup_device per
+    chromosome against (2)'s bins at 1000.  (5) get_reverse_complement of
+    phase 7's reads into count_kmers(., 31): phase 7's table with every
+    hash mapped to its reverse complement, one upload, one launch of
+    kmer_keys_kernel.  Returns the kernel launches and the two ops' rows
+    of the torch-ops line."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import arithmetics as ar
+    from bionumpy_tpu_torch.datatypes import Interval
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.ops import resident
+    from bionumpy_tpu_torch.ops.tracks import binned_pileup, dense_pileup
+    sizes = {"chr21": CHR21, "chr22": CHR22}
+    n = BED_INTERVALS
+    out, peaks = {}, {}
+    kk.reset_launches()
+    pk.reset_launches()
+
+    def warm_timed(name, fn):
+        synced_s(fn)
+        res, s = synced_s(fn)
+        out[name] = s
+        return res
+
+    def peak(part):
+        torch.cuda.synchronize()
+        peaks[part] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (1) pileups at the dense scale: phase 17's fragments (seed 5)
+    rng = np.random.default_rng(5)
+    s21, e21 = fragments(rng, n, CHR21)
+    iv21 = Interval(["chr21"] * n, s21, e21)
+    depth = numpy_depth(s21, e21, CHR21)
+    host = warm_timed("get_pileup_s", lambda: ar.get_pileup(iv21, CHR21))
+    dense = warm_timed("get_pileup_device_s", lambda: ar.get_pileup_device(
+        iv21, CHR21, device=dev))
+    if not (np.array_equal(host.to_array(), depth)
+            and np.array_equal(dense.events, host.events)
+            and np.array_equal(dense.values, host.values)):
+        raise AssertionError("the pileups differ from the numpy recount or "
+                             "from each other")
+    n_runs = len(dense.values)
+    del host, dense
+    # the dense call's split: upload, the op, the fetch, the host RLE
+    split = {}
+
+    def lap(name, fn):
+        res, split[name] = synced_s(fn)
+        return res
+
+    ends = lap("h2d_s", lambda: [torch.from_numpy(a.astype(np.int32)).to(dev)
+                                 for a in (s21, e21)])
+    on_card = lap("dense_pileup_s", lambda: dense_pileup(
+        *ends, torch.ones(n, dtype=torch.bool, device=dev), CHR21))
+    fetched = lap("fetch_s", lambda: on_card.cpu().numpy())
+    lap("rle_s", lambda: ar.GenomicRunLengthArray.from_array(fetched))
+    out["get_pileup_device_split"] = split
+    del ends, on_card, fetched
+    for bin_size in (100, 1000):
+        got = warm_timed(f"binned_{bin_size}_s", lambda: ar.get_pileup_device(
+            iv21, CHR21, bin_size=bin_size, device=dev))
+        if not np.array_equal(got, numpy_bins(depth, bin_size)):
+            raise AssertionError(f"get_pileup_device at bin_size {bin_size} "
+                                 f"differs from the recount")
+    del depth, iv21
+    # the two ops alone on these inputs, beside a plain torch version
+    starts = torch.from_numpy(s21.astype(np.int32)).to(dev)
+    stops = torch.from_numpy(e21.astype(np.int32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    n_bins = -(-CHR21 // 100)
+
+    def dense_plain():
+        diff = torch.bincount(starts, minlength=CHR21 + 1) - \
+            torch.bincount(stops, minlength=CHR21 + 1)
+        return torch.cumsum(diff[:-1], 0).to(torch.int32)
+
+    def binned_plain():
+        d = torch.nn.functional.pad(dense_plain(), (0, n_bins * 100 - CHR21))
+        return d.view(n_bins, 100).sum(1, dtype=torch.int32)
+
+    dense_op = lambda: dense_pileup(starts, stops, valid, CHR21)  # noqa: E731
+    binned_op = lambda: binned_pileup(  # noqa: E731
+        starts, stops, valid, n_bins, 100)
+    if not (torch.equal(dense_op(), dense_plain())
+            and torch.equal(binned_op(), binned_plain())):
+        raise AssertionError("a pileup op differs from its plain version")
+    in_bytes = n * (4 + 4 + 1)
+    rows = [torch_op_row("dense_pileup", "bionumpy_tpu/ops/tracks.py:24",
+                         dense_op, dense_plain, in_bytes + 4 * CHR21,
+                         per=f"{n} intervals over {CHR21} positions"),
+            torch_op_row("binned_pileup", "bionumpy_tpu/ops/tracks.py:37",
+                         binned_op, binned_plain, in_bytes + 4 * n_bins,
+                         per=f"{n} intervals into {n_bins} bins of 100")]
+    del starts, stops, valid
+    torch.cuda.empty_cache()
+    peak("pileups")
+
+    # (2) binned_pileup_bed over a gzip BED of both chromosomes
+    s22, e22 = fragments(rng, n, CHR22)
+    bed_path = os.path.join(workdir, "fragments.bed.gz")
+    both = Interval(["chr21"] * n + ["chr22"] * n, np.concatenate([s21, s22]),
+                    np.concatenate([e21, e22]))
+    t0 = time.perf_counter()
+    with bt.open(bed_path, "w") as f:
+        f.write(both)
+    out["bed_write_s"] = time.perf_counter() - t0
+    del both
+    depths = {"chr21": numpy_depth(s21, e21, CHR21),
+              "chr22": numpy_depth(s22, e22, CHR22)}
+    bed_bins = {}
+    for bin_size in (1000, 100):
+        bt.instrument.reset()
+        (tracks, stats), s = synced_s(lambda: bt.binned_pileup_bed(
+            bed_path, sizes, bin_size, device=dev))
+        st = bt.instrument.report()
+        if not (stats == {"n_intervals": 2 * n, "n_bins": sum(
+                -(-v // bin_size) for v in sizes.values())} and all(
+                np.array_equal(tracks[c], numpy_bins(depths[c], bin_size))
+                for c in sizes)):
+            raise AssertionError(f"binned_pileup_bed at {bin_size} differs "
+                                 f"from the recount")
+        out[f"binned_pileup_bed_{bin_size}"] = {
+            "s": s, "records_per_s": 2 * n / s,
+            **{k: st[k]["seconds"] for k in ("read", "H2D", "step",
+                                             "D2H-table")}}
+        bed_bins[bin_size] = tracks
+    del depths
+    peak("binned_pileup_bed")
+
+    # (3) jaccard and forbes against seeded peaks
+    enc = bt.StringEncoding(list(sizes))
+    rng7 = np.random.default_rng(SEED)
+    on21 = rng7.random(PEAKS) < CHR21 / (CHR21 + CHR22)
+    p_start = np.where(on21, rng7.integers(0, CHR21 - 400, PEAKS),
+                       rng7.integers(0, CHR22 - 400, PEAKS))
+    p_stop = p_start + rng7.integers(200, 401, PEAKS)
+
+    def encoded(on_21, st, sp):
+        return Interval(bt.EncodedArray((~on_21).astype(np.int64), enc),
+                        st, sp)
+    frag = encoded(np.arange(2 * n) < n, np.concatenate([s21, s22]),
+                   np.concatenate([e21, e22]))
+    pk_iv = encoded(on21, p_start, p_stop)
+    t0 = time.perf_counter()
+    frag, pk_iv = ar.sort_intervals(frag), ar.sort_intervals(pk_iv)
+    out["sort_s"] = time.perf_counter() - t0
+    j, out["jaccard_s"] = synced_s(lambda: ar.jaccard(sizes, frag, pk_iv))
+    fb, out["forbes_s"] = synced_s(lambda: ar.forbes(sizes, frag, pk_iv))
+    del frag, pk_iv
+    cells = np.zeros(4, np.int64)
+    for name, fs, fe, ps, pe in (
+            ("chr21", s21, e21, p_start[on21], p_stop[on21]),
+            ("chr22", s22, e22, p_start[~on21], p_stop[~on21])):
+        a = numpy_depth(fs, fe, sizes[name]) > 0
+        b = numpy_depth(ps, pe, sizes[name]) > 0
+        cells += [np.sum(a & b), np.sum(a & ~b), np.sum(~a & b),
+                  np.sum(~a & ~b)]
+        del a, b
+    table = cells.reshape(2, 2)
+    (both_, a_only), (b_only, neither) = table
+    want_j = float(both_ / (table.sum() - neither))
+    want_f = float(both_ * table.sum() / ((both_ + a_only) * (both_ + b_only)))
+    if not (j == want_j and fb == want_f):
+        raise AssertionError(f"jaccard {j!r} / forbes {fb!r} != the recount "
+                             f"{want_j!r} / {want_f!r}")
+    out["jaccard"], out["forbes"] = j, fb
+    peak("similarity")
+
+    # (4) the stream layer over the file's chunks
+    lengths = np.concatenate([e21 - s21, e22 - s22])
+    del s21, e21, s22, e22
+
+    def chunk_lengths():
+        return (c.stop - c.start for c in bt.open(bed_path).read_chunks())
+    edges = np.arange(100, 601, 50)
+    q = [0.1, 0.5, 0.9]
+    t0 = time.perf_counter()
+    got = (bt.mean(chunk_lengths()), bt.bincount(chunk_lengths()),
+           bt.histogram(chunk_lengths(), bins=edges),
+           bt.quantile(chunk_lengths(), q))
+    out["reductions_s"] = time.perf_counter() - t0
+    cum = np.cumsum(np.bincount(lengths))
+    want = (np.array([lengths.sum()]) / len(lengths), np.bincount(lengths),
+            np.histogram(lengths, bins=edges),
+            np.searchsorted(cum, np.asarray(q) * cum[-1]))
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and all(np.array_equal(a, b) for a, b in zip(got[2], want[2]))
+            and np.array_equal(got[3], want[3])):
+        raise AssertionError("a stream reduction differs from numpy over "
+                             "the whole file")
+    del lengths
+    t0 = time.perf_counter()
+    grouped = {name: ar.get_pileup_device(group, sizes[name], bin_size=1000,
+                                          device=dev)
+               for name, group in bt.groupby(bt.open(bed_path).read_chunks(),
+                                             "chromosome")}
+    out["groupby_pileup_s"] = time.perf_counter() - t0
+    if not (list(grouped) == list(sizes) and all(
+            np.array_equal(grouped[c], bed_bins[1000][c]) for c in sizes)):
+        raise AssertionError("groupby into get_pileup_device differs from "
+                             "binned_pileup_bed's bins")
+    del grouped, bed_bins
+    peak("streams")
+
+    # (5) reverse complement into kernel 1
+    resident.reset_transfer_counters()
+    rc, out["reverse_complement_s"] = synced_s(
+        lambda: bt.get_reverse_complement(seqs))
+    table_rc, out["count_kmers_rc_s"] = synced_s(
+        lambda: bt.count_kmers(rc, K, device=dev))
+    uploads = resident.TRANSFER_COUNT
+    mapped = kmer_revcomp(np.asarray(c31.label_codes, np.uint64), K)
+    order = np.argsort(mapped)
+    if not (np.array_equal(table_rc.label_codes, mapped[order])
+            and np.array_equal(table_rc.counts, c31.counts[order])):
+        raise AssertionError("the reverse complement's 31-mer table is not "
+                             "phase 7's mapped to reverse complements")
+    launches = {**kk.LAUNCHES, **pk.LAUNCHES}
+    if uploads != 1 or launches["kmer_keys_kernel"] != 1:
+        raise AssertionError(f"{uploads} uploads and "
+                             f"{launches['kmer_keys_kernel']} launches for "
+                             f"the reverse complement's count")
+    del rc, table_rc
+    peak("reverse_complement")
+    log(f"[intervals] exact: pileups of {n} chr21 fragments ({n_runs} runs), "
+        f"binned_pileup_bed of {2 * n} records at 1000 and 100, jaccard "
+        f"{j!r} and forbes {fb!r} against {PEAKS} peaks, the stream "
+        f"reductions and groupby, {len(c31.label_codes)} reverse-complement "
+        f"31-mers")
+    log("[intervals] " + json.dumps({**out, "peak_device_bytes": peaks,
+                                     "launches": launches, "uploads": uploads,
+                                     "gpu": gpu_line()}))
+    return launches, rows
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1968,11 +2260,10 @@ def main() -> int:
         enc_launches, matches = run_phase(
             "motif-encoded", phase_motif_encoded, dev, seqs, motif, variants,
             lengths)
-        del seqs
         open_launches, open_large_launches = run_phase(
             "open-fastq", phase_open_fastq, dev, workdir, lengths, c31,
             matches, motif, motif_wall)
-        del c31, matches
+        del matches
         sum_launches = run_phase("checksum", phase_checksum, dev, counts,
                                  variants, lengths)
         gc_launches, chunked_launches, gc_result = run_phase(
@@ -1986,6 +2277,10 @@ def main() -> int:
         records_launches = run_phase("open-records", phase_open_records, dev,
                                      workdir, reads, proteins)
         del reads, proteins
+        interval_launches, pileup_rows = run_phase(
+            "intervals", phase_intervals, dev, workdir, seqs, c31)
+        op_rows += pileup_rows
+        del seqs, c31
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
@@ -2003,11 +2298,13 @@ def main() -> int:
         "open_fastq": open_launches["kmer_keys_kernel"],
         "open_fastq_large_chunks": open_large_launches["kmer_keys_kernel"],
         "open_config3": config3_launches["kmer_keys_kernel"],
-        "open_records": records_launches["kmer_keys_kernel"]}
+        "open_records": records_launches["kmer_keys_kernel"],
+        "intervals": interval_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],
-        "kmer_ops": ops_launches["kmer_fullsum_kernel"]}
+        "kmer_ops": ops_launches["kmer_fullsum_kernel"],
+        "intervals": interval_launches["kmer_fullsum_kernel"]}
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     rows[2]["launches_by_path"] = {
         "motif": motif_launches["pwm_scores_kernel"],
@@ -2015,7 +2312,8 @@ def main() -> int:
         "open_fastq": open_launches["pwm_scores_kernel"],
         "open_fastq_large_chunks": open_large_launches[
             "pwm_scores_kernel"],
-        "open_records": records_launches["pwm_scores_kernel"]}
+        "open_records": records_launches["pwm_scores_kernel"],
+        "intervals": interval_launches["pwm_scores_kernel"]}
     print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

@@ -124,3 +124,29 @@ def test_pwm_kernel_module_imports_without_nvcc(tmp_path):
     assert proc.returncode == 0, proc.stderr
     # every base is C (code 1): 5.0 at each of 16384 positions
     assert proc.stdout.split() == [str(5.0 * 16384), "BUILD", "True"]
+
+
+_INTERVAL_PATH = """
+import sys
+import bionumpy_tpu_torch as bt
+from bionumpy_tpu_torch import arithmetics as ar
+with open(sys.argv[1], "w") as f:
+    f.write("chr1\\t0\\t10\\nchr1\\t5\\t30\\nchr2\\t3\\t9\\nchrUn\\t1\\t2\\n")
+tracks, stats = bt.binned_pileup_bed(sys.argv[1], {"chr1": 40, "chr2": 20},
+                                     bin_size=10, device="cpu")
+assert tracks["chr1"].tolist() == [15, 10, 10, 0] and stats["n_intervals"] == 3
+iv = bt.open(sys.argv[1]).read()
+iv = iv[iv.chromosome == "chr1"]
+assert ar.get_pileup_device(iv, 40, device="cpu").to_array().sum() == 35
+assert ar.jaccard({"chr1": 40}, iv, iv) == 1.0
+assert bt.get_reverse_complement(bt.as_encoded_array("AAC")).to_string() == "GTT"
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "bionumpy_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_interval_path_loads_neither_jax_nor_the_jax_package(tmp_path):
+    proc = _run(_INTERVAL_PATH, str(tmp_path / "iv.bed"))
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout

@@ -677,3 +677,91 @@ def test_chunked_count_kmers_from_a_file_on_card_matches_cpu(cuda, tmp_path,
     assert np.array_equal(total_got.label_codes, total_want.label_codes)
     assert np.array_equal(total_got.counts, total_want.counts)
     assert np.array_equal(sum(got[1::2]).counts, sum(want[1::2]).counts)
+
+
+def _intervals(bt, seed, n, size, chrom="chr1"):
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, size - 600, n)
+    return bt.datatypes.Interval([chrom] * n, starts,
+                                 starts + rng.integers(1, 600, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_size", [None, 1, 100, 1000])
+def test_get_pileup_device_on_card_matches_cpu(cuda, bin_size):
+    """Dense (an RLE of int32 depths) and binned pileups on the card
+    equal device="cpu", dtypes included."""
+    import bionumpy_tpu_torch as bt
+    iv = _intervals(bt, 3, 20_000, 1_000_003)
+    got = bt.arithmetics.get_pileup_device(iv, 1_000_003, bin_size,
+                                           device=cuda)
+    want = bt.arithmetics.get_pileup_device(iv, 1_000_003, bin_size,
+                                            device="cpu")
+    if bin_size is None:
+        for a, b in ((got.events, want.events), (got.values, want.values)):
+            assert np.array_equal(a, b) and a.dtype == b.dtype
+        assert got.values.dtype == np.int32
+        assert np.array_equal(got.events,
+                              bt.arithmetics.get_pileup(iv, 1_000_003).events)
+    else:
+        assert np.array_equal(got, want) and got.dtype == want.dtype == \
+            np.int32
+    default = bt.arithmetics.get_pileup_device(iv, 1_000_003, bin_size)
+    assert np.array_equal(np.asarray(default.values if bin_size is None
+                                     else default),
+                          np.asarray(want.values if bin_size is None
+                                     else want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_size", [1, 100, 1000])
+def test_binned_pileup_bed_on_card_matches_cpu(cuda, tmp_path, bin_size):
+    import gzip
+
+    import bionumpy_tpu_torch as bt
+    sizes = {"chr1": 400_000, "chr2": 250_001, "chr3": 1000}
+    parts = [_intervals(bt, 4, 3000, sizes["chr1"], "chr1"),
+             _intervals(bt, 5, 2000, sizes["chr2"], "chr2")]
+    lines = "".join(f"{c}\t{s}\t{e}\n" for p in parts for c, s, e in zip(
+        p.chromosome.tolist(), p.start, p.stop)) + "chrUn\t5\t9\n"
+    path = tmp_path / "iv.bed.gz"
+    path.write_bytes(gzip.compress(lines.encode(), mtime=0))
+    got, gstats = bt.binned_pileup_bed(str(path), sizes, bin_size,
+                                       device=cuda)
+    want, wstats = bt.binned_pileup_bed(str(path), sizes, bin_size,
+                                        device="cpu")
+    assert gstats == wstats and gstats["n_intervals"] == 5000
+    for name in sizes:
+        assert np.array_equal(got[name], want[name])
+        assert got[name].dtype == np.int32
+    assert not got["chr3"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 12, 31])
+def test_reverse_complement_into_count_kmers_on_card(cuda, k):
+    """count_kmers of the reverse complement on the card: one upload of
+    the new array, one launch of kernel 1, and the forward table with
+    every hash mapped to its reverse complement."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import resident
+    seqs = bt.as_encoded_array(_reads(9, 2000), bt.DNAEncoding)
+    forward = bt.count_kmers(seqs, k, device="cpu")
+    resident.reset_transfer_counters()
+    before = kk.LAUNCHES["kmer_keys_kernel"]
+    back = bt.count_kmers(bt.get_reverse_complement(seqs), k, device=cuda)
+    assert resident.TRANSFER_COUNT == 1
+    assert kk.LAUNCHES["kmer_keys_kernel"] - before == 1
+    h = np.asarray(forward.label_codes if k > 12 else
+                   np.arange(4 ** k, dtype=np.uint64), np.uint64)
+    rc = np.zeros_like(h)
+    for j in range(k):
+        code = (h >> np.uint64(2 * j)) & np.uint64(3)
+        rc |= (np.uint64(3) - code) << np.uint64(2 * (k - 1 - j))
+    if k > 12:
+        order = np.argsort(rc)
+        assert np.array_equal(back.label_codes, rc[order])
+        assert np.array_equal(back.counts, forward.counts[order])
+    else:
+        assert np.array_equal(back.counts[rc.astype(np.int64)],
+                              forward.counts)
