@@ -34,7 +34,14 @@ histogram, mean and quantile folds), run-length arrays and interval
 arithmetic (arithmetics: pileups, with get_pileup_device on the card,
 boolean masks, jaccard and forbes), reverse complements
 (get_reverse_complement) and the whole-genome binned pileup of a BED file
-(pipeline.binned_pileup_bed, with genomic_data.GlobalOffset).
+(pipeline.binned_pileup_bed, with genomic_data.GlobalOffset); the
+streamed expression graph (compute, whose folds keep torch partials on
+their device), the genomic layer (Genome, GenomicIntervals, GenomicArray,
+GenomicSequence, Geometry and the rest of genomic_data), SBS96
+mutation-type counting and consensus sequences (variants), k-mer and
+wildcard indexes and de Bruijn graphs (sequence.indexing,
+sequence.debruijn, through kernel 1), string matching (match_string),
+transcript sequences and bloom filters.
 """
 from . import instrument
 from .encoded_array import (EncodedArray, EncodedRaggedArray,
@@ -71,6 +78,11 @@ from .io import (Bed6Buffer, BedBuffer, FastQBuffer, GFFBuffer,
                  get_bufferclass_for_datatype, open_indexed, read)
 from .io.matrix_dump import Matrix
 from . import arithmetics
+from .computation_graph import compute
+from .sequence.string_matcher import match_string
+from . import genomic_data
+from . import variants
+from .genomic_data import Genome, GenomicArray, GenomicIntervals
 
 open = bnp_open
 
@@ -93,4 +105,6 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "NarrowPeakBuffer", "GfaSequenceBuffer", "GFFBuffer",
            "SAMBuffer", "MultiStream", "bincount", "groupby", "histogram",
            "mean", "quantile", "streamable", "get_reverse_complement",
-           "arithmetics", "binned_pileup_bed"]
+           "arithmetics", "binned_pileup_bed", "compute", "match_string",
+           "genomic_data", "variants", "Genome", "GenomicArray",
+           "GenomicIntervals"]

@@ -19,7 +19,10 @@ layer (bnp.open) feeding the k-mer, motif, minimizer and translation
 calls chunk by chunk, with the VCF and BED readers and writers at bench
 config 5's scale; and config 5's interval arithmetic (pileups, the binned
 pileup of a BED file, jaccard and forbes, the stream layer) with a
-reverse complement into the k-mer count.  Phases, each of which raises on failure:
+reverse complement into the k-mer count; and the genomic layer: config
+5's SBS96 job, genomic pileups whole and streamed, folds that stay on
+the card, and the k-mer index and de Bruijn graph on kernel 1.  Phases,
+each of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
@@ -134,6 +137,24 @@ reverse complement into the k-mer count.  Phases, each of which raises on failur
                over the file's chunks; get_reverse_complement of phase 7's
                reads into count_kmers(., 31), phase 7's table with every
                hash reverse-complemented, one upload and one launch
+ 19. genomic  bench config 5's SBS96 whole job (bt.open(vcf).read(), the
+               SNP mask, Genome.get_locations, count_mutation_types_genomic
+               through GenomicSequence.from_dict) over a seeded genome of
+               chr21 and chr22 and an 8-member VCF of 773,688 records whose
+               REFs are its bases, three timed runs and a split, the
+               96-vector == bench.py's numpy twin label by label; phase
+               18's BED through Genome.read_intervals, whole and streamed,
+               get_pileup event for event equal to each other, to
+               arithmetics.get_pileup and to a numpy recount;
+               Geometry.jaccard == phase 18's; the 60,000 peaks' sequences
+               == numpy slicing; one streamed pass with SUM (binned_pileup
+               at 100 of the chr21 records), BINCOUNT and MAX folds of
+               partials made on the card, each a CUDA tensor equal to
+               binned_pileup_bed's bins or numpy; KmerLookup (k = 31) over
+               256,000 of phase 7's reads with 100 string queries, each
+               query's rows == a numpy recount, kernel 1 launched once for
+               the index and once a query; DeBruijnGraph over 1000 reads,
+               its contigs equal to the device="cpu" graph's
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -1772,11 +1793,13 @@ BED_INTERVALS = 2_000_000
 OPEN_CHUNK_SIZES = {"default": 5_000_000, "large": 1 << 26}
 
 
-def seeded_vcf_body(seed: int):
+def seeded_vcf_body(seed: int, genome=None):
     """One member's sites-only records on chr21 and chr22 in bench config
     5's shape (VCF_SNVS SNVs among VCF_RECORDS, the rest 1-5 base
-    insertions and deletions), sorted by position.  Returns (text,
-    chromosomes, 1-based positions, refs, alts)."""
+    insertions and deletions), sorted by position.  With `genome` (codes
+    of chr21 and chr22), each record's REF starts with the genome's base
+    at its position, so every SNV's REF is the genome's base.  Returns
+    (text, chromosomes, 1-based positions, refs, alts)."""
     rng = np.random.default_rng(seed)
     n = VCF_RECORDS
     on21 = np.arange(n) < n * CHR21 // (CHR21 + CHR22)
@@ -1788,6 +1811,9 @@ def seeded_vcf_body(seed: int):
         VCF_SNVS, (n - VCF_SNVS) // 2, n - VCF_SNVS - (n - VCF_SNVS) // 2]))
     letters = np.array(list("ACGT"))
     first = rng.integers(0, 4, n)
+    if genome is not None:
+        first[on21] = genome["chr21"][pos[on21] - 1]
+        first[~on21] = genome["chr22"][pos[~on21] - 1]
     other = (first + rng.integers(1, 4, n)) % 4
     extra = rng.integers(1, 6, n)
     tails = ["".join(letters[rng.integers(0, 4, e)]) for e in extra]
@@ -1939,6 +1965,16 @@ def phase_open_records(dev, workdir: str, reads, proteins):
 
 
 PEAKS = 60_000                # phase 18's second interval set
+
+
+def seeded_peaks():
+    """Phase 18's 60,000 seeded peaks of 200-400 bases on chr21 and
+    chr22: (on chr21, starts, stops)."""
+    rng = np.random.default_rng(SEED)
+    on21 = rng.random(PEAKS) < CHR21 / (CHR21 + CHR22)
+    p_start = np.where(on21, rng.integers(0, CHR21 - 400, PEAKS),
+                       rng.integers(0, CHR22 - 400, PEAKS))
+    return on21, p_start, p_start + rng.integers(200, 401, PEAKS)
 
 
 def fragments(rng, n: int, size: int):
@@ -2116,11 +2152,7 @@ def phase_intervals(dev, workdir: str, seqs, c31):
 
     # (3) jaccard and forbes against seeded peaks
     enc = bt.StringEncoding(list(sizes))
-    rng7 = np.random.default_rng(SEED)
-    on21 = rng7.random(PEAKS) < CHR21 / (CHR21 + CHR22)
-    p_start = np.where(on21, rng7.integers(0, CHR21 - 400, PEAKS),
-                       rng7.integers(0, CHR22 - 400, PEAKS))
-    p_stop = p_start + rng7.integers(200, 401, PEAKS)
+    on21, p_start, p_stop = seeded_peaks()
 
     def encoded(on_21, st, sp):
         return Interval(bt.EncodedArray((~on_21).astype(np.int64), enc),
@@ -2186,6 +2218,7 @@ def phase_intervals(dev, workdir: str, seqs, c31):
             np.array_equal(grouped[c], bed_bins[1000][c]) for c in sizes)):
         raise AssertionError("groupby into get_pileup_device differs from "
                              "binned_pileup_bed's bins")
+    bins_100_chr21 = bed_bins[100]["chr21"]
     del grouped, bed_bins
     peak("streams")
 
@@ -2217,7 +2250,414 @@ def phase_intervals(dev, workdir: str, seqs, c31):
     log("[intervals] " + json.dumps({**out, "peak_device_bytes": peaks,
                                      "launches": launches, "uploads": uploads,
                                      "gpu": gpu_line()}))
-    return launches, rows
+    return launches, rows, {"jaccard": j, "bins_100_chr21": bins_100_chr21}
+
+
+# phase 19: sizes of the index-layer prefixes (their Python loops run once
+# per distinct k-mer) and of the SBS96 job's repeats
+INDEX_READS = 256_000         # KmerLookup over 8 variants x 32 copies
+INDEX_QUERIES = 100
+DBG_READS = 1000              # DeBruijnGraph over one copy of a variant
+SBS_RUNS = 3
+
+
+def _inflate_members_seq(path: str) -> bytes:
+    """All gzip members of a file inflated one after another."""
+    import zlib
+    data = open(path, "rb").read()
+    out = []
+    while data:
+        obj = zlib.decompressobj(wbits=31)
+        out.append(obj.decompress(data))
+        data = obj.unused_data
+    return b"".join(out)
+
+
+def numpy_sbs96_job(path: str, ref_codes: dict):
+    """bench.py's numpy twin of config 5's whole SBS96 job
+    (bench.py:551-606): inflate, a vectorized VCF field scan, then the
+    strand-collapsed SBS96 counts in bin order ((ref C/T * 3 + alt rank)
+    * 16 + left * 4 + right).  Returns (counts, number of SNVs)."""
+    raw = np.frombuffer(_inflate_members_seq(path), np.uint8)
+    nl = np.flatnonzero(raw == 10)
+    line_starts = np.insert(nl[:-1] + 1, 0, 0)
+    data_starts = line_starts[raw[line_starts] != ord("#")]
+    tabs = np.flatnonzero(raw == 9)
+    first = np.searchsorted(tabs, data_starts)
+    t = [tabs[first + j] for j in range(5)]
+    is22 = raw[t[0] - 1] == ord("2")
+    lens = t[1] - t[0] - 1
+    width = int(lens.max())
+    idx = t[1][:, None] - width + np.arange(width)
+    digits = (raw[np.maximum(idx, 0)] - ord("0")).astype(np.int64)
+    digits[idx < (t[0] + 1)[:, None]] = 0
+    pos = digits @ (10 ** np.arange(width - 1, -1, -1)) - 1
+    ref_len = t[3] - t[2] - 1
+    alt_len = t[4] - t[3] - 1
+    snp = (ref_len == 1) & (alt_len == 1)
+    enc = np.full(256, 255, np.uint8)
+    for i, c in enumerate("ACGT"):
+        enc[ord(c)] = i
+    alt = enc[raw[t[3] + 1]][snp]
+    pos_s = pos[snp]
+    is22_s = is22[snp]
+    counts = np.zeros(96, np.int64)
+    names = sorted(ref_codes)
+    for name, sel in ((names[0], ~is22_s), (names[1], is22_s)):
+        codes = ref_codes[name]
+        p = pos_s[sel]
+        a = alt[sel].astype(np.int64)
+        left = codes[p - 1].astype(np.int64)
+        mid = codes[p].astype(np.int64)
+        right = codes[p + 1].astype(np.int64)
+        flip = (mid == 0) | (mid == 2)
+        left2 = np.where(flip, 3 - right, left)
+        right2 = np.where(flip, 3 - left, right)
+        mid2 = np.where(flip, 3 - mid, mid)
+        a2 = np.where(flip, 3 - a, a)
+        ref_rank = (mid2 == 3).astype(np.int64)
+        alt_rank = a2 - (a2 > mid2)
+        bin_idx = ((ref_rank * 3 + alt_rank) * 4 + left2) * 4 + right2
+        counts += np.bincount(bin_idx, minlength=96)
+    return counts, int(snp.sum())
+
+
+SBS96_LABELS = [f"{l}[{r}>{a}]{s}" for r in "CT" for a in "ACGT" if a != r
+                for l in "ACGT" for s in "ACGT"]
+
+
+class _Vars:
+    """bench.py's config-5 variant view: chromosome and position from the
+    genomic locations, the other fields from the parsed records."""
+
+    def __init__(self, loc, var):
+        self._loc, self._var = loc, var
+
+    def get_data_field(self, name):
+        if name in ("chromosome", "position"):
+            return getattr(self._loc, name)
+        return getattr(self._var, name)
+
+    def __getitem__(self, idx):
+        return _Vars(self._loc[idx], self._var[idx])
+
+    def get_windows(self, flank):
+        return self._loc.get_windows(flank=flank)
+
+
+def phase_genomic(dev, workdir: str, seqs, phase18: dict):
+    """The genomic layer, the SBS96 job, the streamed fold and the index
+    layer, every check exact.  (1) Bench config 5's SBS96 whole job as
+    bench.py:655-690 drives it, over a seeded genome of chr21 and chr22
+    and an 8-member VCF of 773,688 records (669,304 SNVs) whose REFs are
+    the genome's bases: read, SNP mask, Genome.get_locations,
+    count_mutation_types_genomic through GenomicSequence.from_dict; 3
+    timed runs and a split run, the 96-vector held to bench.py's numpy
+    twin label by label.  (2) Genome.read_intervals of phase 18's 4 M
+    record gzip BED, whole and stream=True, get_pileup of each equal event
+    for event, chr21 equal to arithmetics.get_pileup and both to a numpy
+    recount; Geometry.jaccard against phase 18's 60,000 peaks == phase
+    18's jaccard; GenomicSequence extraction of the peaks == numpy
+    slicing.  (3) One streamed pass over bt.open(bed).read_chunks() with
+    three folds of partials made on the card: ops/tracks.binned_pileup of
+    the chr21 records at 100 (through GlobalOffset) by SUM, the fragment
+    lengths' bincount by BINCOUNT and their max by MAX; each result a CUDA
+    tensor equal to binned_pileup_bed's bins / numpy.  (4) KmerLookup
+    (k = 31) over the first INDEX_READS reads of phase 7's array and
+    INDEX_QUERIES string queries, each query's rows equal to a numpy
+    recount, kernel 1 launched once for the index and once a query;
+    DeBruijnGraph over the first DBG_READS reads, its contigs equal to
+    the same graph built with device="cpu".  Returns the kernel launches
+    of parts (1)-(4)."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import computation_graph as cg
+    from bionumpy_tpu_torch import arithmetics as ar
+    from bionumpy_tpu_torch.datatypes import Interval
+    from bionumpy_tpu_torch.genomic_data import (GenomicSequence, Geometry,
+                                                 GlobalOffset)
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.ops.tracks import binned_pileup
+    from bionumpy_tpu_torch.sequence.debruijn import DeBruijnGraph
+    from bionumpy_tpu_torch.sequence.indexing import KmerLookup
+    from bionumpy_tpu_torch.variants import count_mutation_types_genomic
+    from bionumpy_tpu_torch.variants.mutation_signature import encode_snps
+    from bionumpy_tpu_torch.sequence import count_encoded
+    sizes = {"chr21": CHR21, "chr22": CHR22}
+    out, peaks, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def reset():
+        kk.reset_launches()
+        pk.reset_launches()
+
+    def read_launches(part):
+        launches[part] = {**kk.LAUNCHES, **pk.LAUNCHES}
+        torch.cuda.synchronize()
+        peaks[part] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # (1) config 5's SBS96 whole job
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 19)
+    ref_codes = {name: rng.integers(0, 4, size).astype(np.uint8)
+                 for name, size in sizes.items()}
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    sequence = GenomicSequence.from_dict(
+        {name: bytes(alpha[c]).decode("ascii")
+         for name, c in ref_codes.items()})
+    genome = bt.Genome.from_dict(sizes)
+    body, _, pos, refs, alts = seeded_vcf_body(SEED, ref_codes)
+    vcf_path = os.path.join(workdir, "config5.vcf.gz")
+    member = gzip.compress(body, 6, mtime=0)
+    with open(vcf_path, "wb") as f:
+        f.write(gzip.compress(VCF_HEADER + body, 6, mtime=0))
+        for _ in range(VCF_MEMBERS - 1):
+            f.write(member)
+    n_snv_member = sum(len(r) == len(a) == 1 for r, a in zip(refs, alts))
+    del body, member, pos, refs, alts
+    out["sbs96_setup_s"] = time.perf_counter() - t0
+
+    def sbs_job():
+        variants = bt.open(vcf_path).read()
+        is_snp = np.asarray(variants.ref_seq.lengths == 1) & \
+            np.asarray(variants.alt_seq.lengths == 1)
+        snps = variants[is_snp]
+        locations = genome.get_locations(
+            bt.LocationEntry(snps.chromosome, snps.position))
+        counts = count_mutation_types_genomic(_Vars(locations, snps),
+                                              sequence)
+        return counts, len(snps), len(variants)
+
+    reset()
+    runs = []
+    for _ in range(SBS_RUNS):
+        (counts, n_snps, n_var), sec = synced_s(sbs_job)
+        runs.append(sec)
+    got = dict(zip([str(x) for x in counts.alphabet],
+                   np.asarray(counts.counts).tolist()))
+    (np_counts, np_snps), out["sbs96_numpy_s"] = synced_s(
+        lambda: numpy_sbs96_job(vcf_path, ref_codes))
+    if not (n_var == VCF_MEMBERS * VCF_RECORDS
+            and n_snps == np_snps == VCF_MEMBERS * VCF_SNVS
+            == VCF_MEMBERS * n_snv_member and set(got) == set(SBS96_LABELS)
+            and all(got[label] == int(np_counts[b])
+                    for b, label in enumerate(SBS96_LABELS))):
+        raise AssertionError("the SBS96 job's 96-vector differs from the "
+                             "numpy twin's")
+    # the split: the same steps one by one, as count_mutation_types_genomic
+    # runs them on the window_matrix path
+    split = {}
+
+    def lap(name, fn):
+        res, split[name] = synced_s(fn)
+        return res
+
+    def read_parse():
+        variants = bt.open(vcf_path).read()
+        is_snp = np.asarray(variants.ref_seq.lengths == 1) & \
+            np.asarray(variants.alt_seq.lengths == 1)
+        return variants[is_snp]
+
+    snps = lap("read_parse_s", read_parse)
+    locations = lap("locations_s", lambda: genome.get_locations(
+        bt.LocationEntry(snps.chromosome, snps.position)))
+    kmers = lap("window_gather_s", lambda: sequence.window_matrix(
+        locations.chromosome, np.asarray(locations.position), 1))
+    hashes = lap("encode_s", lambda: encode_snps(
+        kmers[~np.any(np.asarray(kmers == "N"), axis=-1)], snps.alt_seq,
+        snps.ref_seq))
+    split_counts = lap("count_s", lambda: count_encoded(hashes))
+    if not np.array_equal(split_counts.counts, counts.counts):
+        raise AssertionError("the split SBS96 steps differ from the job")
+    del snps, locations, kmers, hashes
+    best = min(runs)
+    out["sbs96"] = {"runs_s": runs, "kvariants_per_s": n_snps / best / 1e3,
+                    "n_variants": n_var, "n_snps": n_snps, "split": split}
+    read_launches("sbs96")
+
+    # (2) genomic intervals and tracks on phase 18's files
+    reset()
+    bed_path = os.path.join(workdir, "fragments.bed.gz")
+    frng = np.random.default_rng(5)
+    s21, e21 = fragments(frng, BED_INTERVALS, CHR21)
+    s22, e22 = fragments(frng, BED_INTERVALS, CHR22)
+    full, out["read_intervals_s"] = synced_s(
+        lambda: genome.read_intervals(bed_path))
+    track, out["get_pileup_s"] = synced_s(full.get_pileup)
+    streamed, out["stream_pileup_s"] = synced_s(
+        lambda: genome.read_intervals(bed_path, stream=True)
+        .get_pileup().compute())
+    host21 = ar.get_pileup(Interval(["chr21"] * BED_INTERVALS, s21, e21),
+                           CHR21)
+    for name, (st, sp) in (("chr21", (s21, e21)), ("chr22", (s22, e22))):
+        a, b = track[name], streamed[name]
+        if not (np.array_equal(a.events, b.events)
+                and np.array_equal(a.values, b.values)
+                and np.array_equal(a.to_array(),
+                                   numpy_depth(st, sp, sizes[name]))):
+            raise AssertionError(f"the genomic pileups of {name} differ "
+                                 f"from each other or the recount")
+    if not (np.array_equal(track["chr21"].events, host21.events)
+            and np.array_equal(track["chr21"].values, host21.values)):
+        raise AssertionError("the genomic pileup of chr21 differs from "
+                             "arithmetics.get_pileup")
+    n_runs = len(track._global_track.values)
+    del track, streamed, host21
+    on21, p_start, p_stop = seeded_peaks()
+    peak_iv = Interval(np.where(on21, "chr21", "chr22").tolist(), p_start,
+                       p_stop)
+    j, out["geometry_jaccard_s"] = synced_s(
+        lambda: Geometry(sizes).jaccard(full.data, peak_iv))
+    if not j == phase18["jaccard"]:
+        raise AssertionError(f"Geometry.jaccard {j!r} != phase 18's "
+                             f"{phase18['jaccard']!r}")
+    del full
+    extracted, out["extract_intervals_s"] = synced_s(
+        lambda: sequence.extract_intervals(peak_iv))
+    want = np.concatenate([ref_codes["chr21" if o else "chr22"][a:b]
+                           for o, a, b in zip(on21, p_start, p_stop)])
+    if not (np.array_equal(extracted.lengths, p_stop - p_start)
+            and np.array_equal(extracted.ravel().raw(), want)):
+        raise AssertionError("GenomicSequence.extract_intervals differs "
+                             "from numpy slicing")
+    del extracted, want, peak_iv, sequence
+    read_launches("intervals")
+
+    # (3) the streamed fold on the card: one pass, three folds
+    reset()
+    go = GlobalOffset(sizes)
+    n_bins = -(-CHR21 // 100)
+
+    def upload(chunk):
+        g = go.from_local_interval(chunk)
+        return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                     for a in (g.start, g.stop))
+
+    def chunk_bins(ends):
+        starts, stops = ends
+        on_21 = starts < CHR21
+        return binned_pileup(starts[on_21].int(), stops[on_21].int(),
+                             torch.ones(int(on_21.sum()), dtype=torch.bool,
+                                        device=dev), n_bins, 100)
+
+    def run_fold():
+        src = cg.StreamNode(bt.open(bed_path).read_chunks())
+        ends = cg.ComputationNode(upload, [src])
+        lengths = cg.ComputationNode(lambda e: e[1] - e[0], [ends])
+        return cg.compute({
+            "bins": cg.ReductionNode(cg.ComputationNode(chunk_bins, [ends]),
+                                     cg.SUM),
+            "bincount": cg.ReductionNode(cg.ComputationNode(
+                torch.bincount, [lengths]), cg.Reduction(cg.BINCOUNT.combine)),
+            "max": cg.ReductionNode(cg.ComputationNode(
+                lambda x: x.amax().reshape(1), [lengths]), cg.MAX),
+            "chunks": cg.ReductionNode(cg.ComputationNode(
+                lambda e: 1, [ends]), cg.SUM)})
+
+    fold, out["stream_fold_s"] = synced_s(run_fold)
+    lengths = np.concatenate([e21 - s21, e22 - s22])
+    want21 = numpy_bins(numpy_depth(s21, e21, CHR21), 100)
+    if not all(isinstance(fold[k], torch.Tensor)
+               and fold[k].device.type == dev.type == "cuda"
+               for k in ("bins", "bincount", "max")):
+        raise AssertionError("a streamed fold left the card")
+    if not (np.array_equal(fold["bins"].cpu().numpy(),
+                           phase18["bins_100_chr21"])
+            and np.array_equal(fold["bins"].cpu().numpy(), want21)
+            and np.array_equal(fold["bincount"].cpu().numpy(),
+                               np.bincount(lengths))
+            and int(fold["max"][0]) == int(lengths.max())):
+        raise AssertionError("the streamed folds differ from "
+                             "binned_pileup_bed's bins or numpy")
+    out["stream_fold_chunks"] = fold["chunks"]
+    del fold, lengths, want21, s21, e21, s22, e22
+    read_launches("stream_fold")
+
+    # (4) kernel 1 through the index layer
+    prefix = seqs[:INDEX_READS]
+    reset()
+    lookup, out["kmer_lookup_create_s"] = synced_s(
+        lambda: KmerLookup.create_lookup(prefix, k=K, device=dev))
+    create_launches = kk.LAUNCHES["kmer_keys_kernel"]
+    flat = np.asarray(prefix.ravel().raw())
+    plen = np.asarray(prefix.lengths)
+    h = numpy_kmer_hashes(flat, K)
+    ends = np.cumsum(plen)
+    row_of = np.repeat(np.arange(len(plen)), plen)
+    inside = (np.repeat(ends, plen) - np.arange(len(flat)))[: len(h)] >= K
+    h, row_of = h[inside], row_of[: len(inside)][inside]
+    qrng = np.random.default_rng(SEED)
+    q_rows = qrng.integers(0, INDEX_READS, INDEX_QUERIES)
+    starts = np.concatenate([[0], ends[:-1]])
+    q_pos = starts[q_rows] + (qrng.random(INDEX_QUERIES) *
+                              (plen[q_rows] - K + 1)).astype(np.int64)
+    queries = ["".join("ACGT"[c] for c in flat[p: p + K]) for p in q_pos]
+    q_hash = numpy_kmer_hashes(flat[q_pos[:, None] + np.arange(K)].ravel(),
+                               K)[:: K]
+    sq = np.sort(q_hash)
+    at = np.minimum(np.searchsorted(sq, h), len(sq) - 1)
+    hit = sq[at] == h
+    h, row_of = h[hit], row_of[hit]
+    want_rows = {int(q): np.unique(row_of[h == q]) for q in sq}
+    del h, row_of, inside, at, hit
+    # the string queries, one launch each; the row sets by hash (a hash
+    # query reads the index without a launch)
+    kk.reset_launches()
+    found, out["kmer_lookup_queries_s"] = synced_s(
+        lambda: [lookup.get_sequences(q) for q in queries])
+    query_launches = kk.LAUNCHES["kmer_keys_kernel"]
+    for q, qh, seq in zip(queries, q_hash, found):
+        rows = want_rows[int(qh)]
+        got_rows = lookup._kmer_index.get_indices(int(qh))
+        want_seq = prefix[rows]
+        if not (np.array_equal(got_rows, rows) and q in seq[0].to_string()
+                and np.array_equal(seq.lengths, want_seq.lengths)
+                and np.array_equal(seq.ravel().raw(),
+                                   want_seq.ravel().raw())):
+            raise AssertionError(f"KmerLookup rows of {q} differ from the "
+                                 f"recount")
+    del flat, found
+    if not (create_launches == 1 and query_launches == INDEX_QUERIES):
+        raise AssertionError(f"kernel 1 launched {create_launches} times for "
+                             f"create_index and {query_launches} for "
+                             f"{INDEX_QUERIES} string queries")
+    out["kmer_lookup_distinct"] = len(lookup._kmer_index._lookup)
+    del lookup, prefix
+    small = seqs[:DBG_READS]
+    kk.reset_launches()
+    graph, out["debruijn_build_s"] = synced_s(
+        lambda: DeBruijnGraph.from_sequences(small, K, device=dev))
+    dbg_launches = kk.LAUNCHES["kmer_keys_kernel"]
+    contigs, out["debruijn_contigs_s"] = synced_s(graph.get_contigs)
+    host = DeBruijnGraph.from_sequences(small, K, device="cpu")
+    if not (dbg_launches == 1 and graph._kmer_set == host._kmer_set
+            and contigs == host.get_contigs()):
+        raise AssertionError("the de Bruijn graph on the card differs from "
+                             "device='cpu'")
+    out["debruijn_kmers"], out["debruijn_contigs"] = \
+        len(graph._kmer_set), len(contigs)
+    launches["index"] = {"kmer_keys_kernel": create_launches +
+                         query_launches + dbg_launches,
+                         "kmer_fullsum_kernel": kk.LAUNCHES[
+                             "kmer_fullsum_kernel"],
+                         "pwm_scores_kernel": pk.LAUNCHES["pwm_scores_kernel"]}
+    torch.cuda.synchronize()
+    peaks["index"] = torch.cuda.max_memory_allocated(dev)
+    total = {name: sum(part[name] for part in launches.values())
+             for name in ("kmer_keys_kernel", "kmer_fullsum_kernel",
+                          "pwm_scores_kernel")}
+    log(f"[genomic] exact: SBS96 over {n_var} variants / {n_snps} SNPs in "
+        f"{best:.3f} s ({n_snps / best / 1e3:.1f} kvariants/s), pileups of "
+        f"{2 * BED_INTERVALS} records ({n_runs} runs) whole and streamed, "
+        f"jaccard {j!r}, {PEAKS} peaks extracted, {out['stream_fold_chunks']}"
+        f"-chunk fold on the card, KmerLookup of {INDEX_READS} reads "
+        f"({out['kmer_lookup_distinct']} 31-mers) with {INDEX_QUERIES} "
+        f"queries, de Bruijn graph of {DBG_READS} reads "
+        f"({out['debruijn_contigs']} contigs)")
+    log("[genomic] " + json.dumps({**out, "peak_device_bytes": peaks,
+                                   "launches": launches, "gpu": gpu_line()}))
+    return total
 
 
 def run_phase(name: str, phase, *args):
@@ -2277,10 +2717,13 @@ def main() -> int:
         records_launches = run_phase("open-records", phase_open_records, dev,
                                      workdir, reads, proteins)
         del reads, proteins
-        interval_launches, pileup_rows = run_phase(
+        interval_launches, pileup_rows, phase18 = run_phase(
             "intervals", phase_intervals, dev, workdir, seqs, c31)
         op_rows += pileup_rows
-        del seqs, c31
+        del c31
+        genomic_launches = run_phase("genomic", phase_genomic, dev, workdir,
+                                     seqs, phase18)
+        del seqs, phase18
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
@@ -2299,12 +2742,14 @@ def main() -> int:
         "open_fastq_large_chunks": open_large_launches["kmer_keys_kernel"],
         "open_config3": config3_launches["kmer_keys_kernel"],
         "open_records": records_launches["kmer_keys_kernel"],
-        "intervals": interval_launches["kmer_keys_kernel"]}
+        "intervals": interval_launches["kmer_keys_kernel"],
+        "genomic": genomic_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],
         "kmer_ops": ops_launches["kmer_fullsum_kernel"],
-        "intervals": interval_launches["kmer_fullsum_kernel"]}
+        "intervals": interval_launches["kmer_fullsum_kernel"],
+        "genomic": genomic_launches["kmer_fullsum_kernel"]}
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     rows[2]["launches_by_path"] = {
         "motif": motif_launches["pwm_scores_kernel"],
@@ -2313,7 +2758,8 @@ def main() -> int:
         "open_fastq_large_chunks": open_large_launches[
             "pwm_scores_kernel"],
         "open_records": records_launches["pwm_scores_kernel"],
-        "intervals": interval_launches["pwm_scores_kernel"]}
+        "intervals": interval_launches["pwm_scores_kernel"],
+        "genomic": genomic_launches["pwm_scores_kernel"]}
     print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

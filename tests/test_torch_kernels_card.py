@@ -765,3 +765,151 @@ def test_reverse_complement_into_count_kmers_on_card(cuda, k):
     else:
         assert np.array_equal(back.counts[rc.astype(np.int64)],
                               forward.counts)
+
+
+def _fold_parts(kind, device):
+    """Per-chunk partials of seeded intervals on `device`: binned pileups
+    (SUM), length bincounts (BINCOUNT) or the longest interval of each
+    chunk, as a 1-element tensor (MAX)."""
+    from bionumpy_tpu_torch.ops.tracks import binned_pileup
+    parts = []
+    for seed in range(5):
+        rng = np.random.default_rng(seed)
+        starts = rng.integers(0, 99_000, 700)
+        stops = starts + rng.integers(1, 900, 700)
+        s, e = (torch.from_numpy(a.astype(np.int32)).to(device)
+                for a in (starts, stops))
+        if kind == "SUM":
+            parts.append(binned_pileup(
+                s, e, torch.ones(len(starts), dtype=torch.bool,
+                                 device=device), 1000, 100))
+        elif kind == "BINCOUNT":
+            parts.append(torch.bincount((e - s).long()))
+        else:
+            parts.append((e - s).amax().reshape(1))
+    return parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["SUM", "BINCOUNT", "MAX"])
+def test_streamed_fold_stays_on_card(cuda, kind):
+    """A ReductionNode over partials made on the card folds to one tensor
+    on the card, equal to the same fold with device="cpu"."""
+    from bionumpy_tpu_torch import computation_graph as cg
+    reduction = {"SUM": cg.SUM, "MAX": cg.MAX,
+                 "BINCOUNT": cg.Reduction(cg.BINCOUNT.combine)}[kind]
+
+    def fold(device):
+        parts = _fold_parts(kind, device)
+        return cg.ReductionNode(cg.StreamNode(iter(parts)),
+                                reduction).compute()
+    got, want = fold(cuda), fold("cpu")
+    assert isinstance(got, torch.Tensor) and got.device.type == "cuda"
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_streamed_operators_stay_on_card(cuda):
+    """A node's operators and np.sum over chunks on the card: the map
+    root is one CUDA tensor (torch.cat), the fold too, both equal to
+    device="cpu"."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import computation_graph as cg
+
+    def run(device):
+        parts = _fold_parts("BINCOUNT", device)
+        expr = 2 * cg.StreamNode(iter(parts)) + 1
+        parts = _fold_parts("BINCOUNT", device)
+        total = np.sum(cg.StreamNode(iter(parts)) % 5)
+        return bt.compute([expr, total])
+    (got, got_sum), (want, want_sum) = run(cuda), run("cpu")
+    assert got.device.type == got_sum.device.type == "cuda"
+    assert torch.equal(got.cpu(), want) and torch.equal(got_sum.cpu(),
+                                                        want_sum)
+
+
+@pytest.mark.cuda
+def test_kmer_lookup_on_card_matches_cpu(cuda):
+    """KmerLookup on the card: one launch of kernel 1 for create_index
+    and one for each string query, the lookup and the rows of each query
+    equal to device="cpu"."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.sequence.indexing import KmerLookup
+    reads = _reads(21, 400)
+    seqs = bt.as_encoded_array(reads, bt.DNAEncoding)
+    kk.reset_launches()
+    card = KmerLookup.create_lookup(seqs, k=31, device=cuda)
+    assert kk.LAUNCHES["kmer_keys_kernel"] == 1
+    host = KmerLookup.create_lookup(seqs, k=31, device="cpu")
+    assert sorted(card._kmer_index._lookup) == \
+        sorted(host._kmer_index._lookup)
+    queries = [r[i: i + 31] for r in reads[:40] if len(r) >= 62
+               for i in (0, 30)]
+    kk.reset_launches()
+    for q in queries:
+        got = card._kmer_index.get_indices(q)
+        assert np.array_equal(got, host._kmer_index.get_indices(q))
+        assert all(q in reads[i] for i in got)
+    assert kk.LAUNCHES["kmer_keys_kernel"] == len(queries) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 31])
+def test_debruijn_graph_on_card_matches_cpu(cuda, k):
+    from bionumpy_tpu_torch.sequence.debruijn import (ColoredDeBruijnGraph,
+                                                      DeBruijnGraph)
+    reads = [r for r in _reads(22, 60, 120) if len(r) >= k]
+    kk.reset_launches()
+    card = DeBruijnGraph.from_sequences(reads, k, device=cuda)
+    colored = ColoredDeBruijnGraph.from_sequences(reads, k, device=cuda)
+    assert kk.LAUNCHES["kmer_keys_kernel"] == 2
+    host = DeBruijnGraph.from_sequences(reads, k, device="cpu")
+    assert card._kmer_set == host._kmer_set
+    assert card.get_contigs() == host.get_contigs()
+    assert dict(colored._color_dict) == dict(ColoredDeBruijnGraph
+                                             .from_sequences(
+                                                 reads, k, device="cpu")
+                                             ._color_dict)
+
+
+def _sbs96_recount(seqs, chroms, pos, alts):
+    """bench.py's numpy SBS96 formula: the 96 counts in the order
+    (ref C/T, alt rank, left base, right base), strand-collapsed."""
+    code = {c: i for i, c in enumerate("ACGT")}
+    counts = np.zeros(96, np.int64)
+    for c, p, a in zip(chroms, pos, alts):
+        left, mid, right = (code[b] for b in seqs[c][p - 1: p + 2])
+        a = code[a]
+        if mid in (0, 2):
+            left, right, mid, a = 3 - right, 3 - left, 3 - mid, 3 - a
+        counts[(((mid == 3) * 3 + a - (a > mid)) * 4 + left) * 4 + right] += 1
+    labels = [f"{l}[{r}>{a}]{s}" for r in "CT" for a in "ACGT" if a != r
+              for l in "ACGT" for s in "ACGT"]
+    return dict(zip(labels, counts.tolist()))
+
+
+@pytest.mark.cuda
+def test_count_mutation_types_genomic_with_a_card(cuda):
+    """Config 5's SBS96 job on a small seeded genome where a card is
+    present: Genome.get_locations and the window gather of a dict-backed
+    GenomicSequence give bench.py's numpy counts, label by label, and no
+    kernel launches (the job is host code, as in the JAX package)."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.variants import count_mutation_types_genomic
+    rng = np.random.default_rng(23)
+    sizes = {"chr21": 20_000, "chr22": 15_000}
+    seqs = {n: "".join(rng.choice(list("ACGT"), s)) for n, s in sizes.items()}
+    chroms = ["chr21"] * 300 + ["chr22"] * 200
+    pos = np.concatenate([np.sort(rng.integers(1, s - 1, n)) for s, n in (
+        (sizes["chr21"], 300), (sizes["chr22"], 200))])
+    alts = ["ACGT"[("ACGT".index(seqs[c][p]) + int(rng.integers(1, 4))) % 4]
+            for c, p in zip(chroms, pos)]
+    refs = [seqs[c][p] for c, p in zip(chroms, pos)]
+    kk.reset_launches()
+    variants = bt.datatypes.Variant(chroms, pos, refs, alts)
+    locations = bt.Genome.from_dict(sizes).get_locations(variants)
+    got = count_mutation_types_genomic(
+        locations, bt.genomic_data.GenomicSequence.from_dict(seqs))
+    assert dict(zip([str(x) for x in got.alphabet], got.counts.tolist())) \
+        == _sbs96_recount(seqs, chroms, pos, alts)
+    assert kk.LAUNCHES["kmer_keys_kernel"] == 0
