@@ -41,13 +41,27 @@ GenomicSequence, Geometry and the rest of genomic_data), SBS96
 mutation-type counting and consensus sequences (variants), k-mer and
 wildcard indexes and de Bruijn graphs (sequence.indexing,
 sequence.debruijn, through kernel 1), string matching (match_string),
-transcript sequences and bloom filters.
+transcript sequences and bloom filters; data-parallel steps and the
+four file pipelines' mesh= over a single-process device mesh (parallel:
+create_mesh, which may repeat one device); and the host tail: the
+simulators (simulate), CliWrapper and run_as_commandline (cli), plot
+(plotting) and alignments.msa.  Every name the JAX package exports at
+its top level is exported here too.
 """
+__version__ = "0.1.0"
+
 from . import instrument
-from .encoded_array import (EncodedArray, EncodedRaggedArray,
-                            as_encoded_array, change_encoding)
-from .encodings import DNAEncoding
+from .encoded_array import (BaseEncoding, EncodedArray, EncodedRaggedArray,
+                            Encoding, EncodedLookup, OneToOneEncoding,
+                            as_encoded_array, change_encoding,
+                            from_encoded_array)
+from .encodings import (AminoAcidEncoding, BamEncoding, CigarEncoding,
+                        DNAEncoding, QualityEncoding, RNAEncoding,
+                        RNAENcoding, StrandEncoding)
+from .encodings.alphabet_encoding import AlphabetEncoding
+from .encodings.kmer_encodings import KmerEncoding
 from .encodings.string_encodings import StringEncoding
+from .ragged import RaggedArray, RaggedShape, RaggedView, ragged_slice
 from .string_array import StringArray, as_string_array, string_array
 from .io.jaspar import read_jaspar_matrix
 from .io.motifs import read_motif
@@ -56,7 +70,7 @@ from .pipeline import (AccOverflow, binned_pileup_bed, count_kmers_fastq,
                        count_minimizers_fastq, get_motif_matches_fastq)
 from .sequence.count_encoded import (EncodedCounts, SparseEncodedCounts,
                                      count_encoded)
-from .sequence.kmers import count_kmers, get_kmers
+from .sequence.kmers import KmerEncoder, count_kmers, get_kmers
 from .sequence.minimizers import (Minimizers, count_minimizers,
                                   count_minimizers_with_gc, get_minimizers)
 from .sequence.position_weight_matrix import (PWM, PositionWeightMatrix,
@@ -81,10 +95,31 @@ from . import arithmetics
 from .computation_graph import compute
 from .sequence.string_matcher import match_string
 from . import genomic_data
+from . import alignments
 from . import variants
+from . import simulate
 from .genomic_data import Genome, GenomicArray, GenomicIntervals
+from .cli import CliWrapper, run_as_commandline
+from .plotting import plot
 
 open = bnp_open
+
+# the reference exposes npstructures as `bnp.nps`; the ragged package is
+# its replacement (reference: bionumpy/__init__.py imports npstructures
+# as nps)
+from . import ragged as nps  # noqa: E402
+
+
+def set_backend(lib):
+    """The reference swaps numpy for cupy via module monkey-patching
+    (bionumpy/__init__.py:47-95).  The port computes with PyTorch on the
+    card: there is no backend to swap."""
+    raise NotImplementedError(
+        "bionumpy_tpu_torch computes with PyTorch on the card, and there "
+        "is no numpy/cupy backend to swap; choose where each call runs "
+        "with its device= argument (device=\"cpu\" runs the plain "
+        "versions on the host)")
+
 
 __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
@@ -107,4 +142,11 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "mean", "quantile", "streamable", "get_reverse_complement",
            "arithmetics", "binned_pileup_bed", "compute", "match_string",
            "genomic_data", "variants", "Genome", "GenomicArray",
-           "GenomicIntervals"]
+           "GenomicIntervals", "Encoding", "OneToOneEncoding",
+           "BaseEncoding", "from_encoded_array", "EncodedLookup",
+           "AlphabetEncoding", "AminoAcidEncoding", "BamEncoding",
+           "QualityEncoding", "CigarEncoding", "StrandEncoding",
+           "KmerEncoding", "RNAEncoding", "RNAENcoding", "RaggedArray",
+           "RaggedShape", "RaggedView", "ragged_slice", "plot",
+           "alignments", "simulate", "CliWrapper", "run_as_commandline",
+           "KmerEncoder"]

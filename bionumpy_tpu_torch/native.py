@@ -92,6 +92,11 @@ def _load():
     return _lib
 
 
+def has_native() -> bool:
+    """True when the host library built and loaded."""
+    return _load() is not None
+
+
 def _require():
     """The host library; raises when it did not build (the readers'
     helpers take no silent numpy path)."""

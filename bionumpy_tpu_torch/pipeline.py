@@ -30,6 +30,14 @@ them through the minimizer table (kmer_keys kernel + windowed min,
 ops/minimizers.py) and the same fold and fetch as the k-mer count.
 binned_pileup_bed reads a BED file, rebases its intervals onto one
 bin-aligned genome axis and runs one binned pileup (ops/tracks.py).
+
+With mesh= (parallel/mesh.Mesh) each of the four splits its work over
+the mesh's devices: a FASTQ batch of target_bases per device is cut on
+read boundaries into one shard a device (_split_fastq_entries, the JAX
+package's split, so shard order and read indices agree), every shard
+runs the single-device ops on its device, and one step a batch merges
+the shards on the lead device (parallel/sparse_parallel.py,
+parallel/reductions.py).
 """
 from __future__ import annotations
 
@@ -58,7 +66,12 @@ from .ops.minimizers import minimizer_sentinel_table_packed
 from .ops.parse import fastq_to_sparse_kmer_table
 from .ops.pwm import pwm_match_compact, pwm_scores_packed
 from .ops.tracks import binned_pileup
-from .parallel.sparse_parallel import merge_hash_tables
+from .parallel.mesh import Mesh, put_sharded
+from .parallel.reductions import sharded_binned_pileup_step
+from .parallel.sparse_parallel import (merge_hash_tables,
+                                       sharded_minimizer_count_fold_step,
+                                       sharded_pwm_match_step,
+                                       sharded_sparse_count_fold_step)
 from .sequence.count_encoded import SparseEncodedCounts
 
 logger = logging.getLogger(__name__)
@@ -69,6 +82,7 @@ TARGET_BUCKET = 1 << 25
 
 # batch tables merged into the device accumulator per fold
 ACC_FOLD = 8
+FOLD_EVERY = ACC_FOLD  # the JAX package's alias
 
 # host-side spill threshold on the k-mers the accumulator may hold:
 # beyond it the accumulator is fetched and folded into a host table.
@@ -848,6 +862,194 @@ def _fetch_acc(acc, acc_cap: int, meta_dev: torch.Tensor = None):
     return hashes, counts, meta_h
 
 
+def _checked_mesh(mesh, device) -> Mesh:
+    """The caller's mesh: a parallel.Mesh, with `device` (when given)
+    its lead device."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a bionumpy_tpu_torch.parallel Mesh "
+                        f"(parallel.create_mesh), got {type(mesh).__name__}")
+    if device is not None:
+        dev, lead = torch.device(device), mesh.lead
+        if dev.type != lead.type or (dev.index or 0) != (lead.index or 0):
+            raise ValueError(f"device={device!r} is not the mesh's lead "
+                             f"device {lead}")
+    return mesh
+
+
+def _split_fastq_entries(raw: bytes, n: int):
+    """Split a complete-entry FASTQ byte blob into n pieces on entry
+    boundaries (C-speed find/count; empty tail pieces allowed) — the
+    per-batch shard split for the mesh path."""
+    bounds = [0]
+    c_before = 0  # newlines before bounds[-1]
+    prev = 0
+    for i in range(1, n):
+        p = len(raw) * i // n
+        if p <= bounds[-1]:
+            bounds.append(bounds[-1])
+            continue
+        c = c_before + raw.count(b"\n", prev, p)
+        # advance p to the next entry start: after a newline, with the
+        # cumulative newline count a multiple of 4
+        if p and raw[p - 1: p] != b"\n":
+            nl = raw.find(b"\n", p)
+            if nl < 0:
+                p = len(raw)
+            else:
+                p = nl + 1
+                c += 1
+        while p < len(raw) and c % 4:
+            nl = raw.find(b"\n", p)
+            if nl < 0:
+                p = len(raw)
+                break
+            p = nl + 1
+            c += 1
+        prev = p
+        c_before = c
+        bounds.append(p)
+    bounds.append(len(raw))
+    return [raw[bounds[i]: bounds[i + 1]] for i in range(n)]
+
+
+def _sharded_batches(path: str, target_bases: int, n_dev: int,
+                     pool: ThreadPoolExecutor):
+    """Yield per-batch shard-stacked (words (n_dev, W), ends (n_dev, R),
+    n_true (n_dev,), parsed) for the mesh pipelines: inflated batches of
+    ~target_bases * n_dev bases split on entry boundaries, each shard
+    native-parsed+packed, padded to the widest shard of the batch."""
+    for raw in _prefetched(_batch_arrays(path, target_bases * n_dev, pool,
+                                         fused_parse=False)):
+        if isinstance(raw, np.ndarray):
+            raw = raw.tobytes()
+        shards = _split_fastq_entries(raw, n_dev)
+        parsed = [_parse_batch(s) for s in shards]
+        n_words = max(p[0].shape[0] for p in parsed)
+        n_rows = max(p[1].shape[0] for p in parsed)
+        words = np.zeros((n_dev, n_words), np.uint32)
+        ends = np.zeros((n_dev, n_rows), np.int32)
+        n_true = np.zeros(n_dev, np.int32)
+        for d, (w, e, nb, nr) in enumerate(parsed):
+            words[d, : w.shape[0]] = w
+            ends[d, : e.shape[0]] = e
+            ends[d, e.shape[0]:] = e[-1] if e.shape[0] else 0
+            n_true[d] = nb
+        yield words, ends, n_true, parsed
+
+
+def _mesh_batch(mesh: Mesh, words, ends, in_flight: deque = None):
+    """One batch's shards on their devices (words as int32).  With
+    `in_flight`, the host waits while _IN_FLIGHT earlier batches are
+    unfinished (_mesh_batch_done records them)."""
+    with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+        shards = (put_sharded(mesh, words.view(np.int32)),
+                  put_sharded(mesh, ends))
+    while in_flight and len(in_flight) >= _IN_FLIGHT:
+        with stage("backpressure"):
+            in_flight.popleft()[0].synchronize()
+    return shards
+
+
+def _mesh_batch_done(mesh: Mesh, in_flight: deque, *host_arrays) -> None:
+    """The copies read the host arrays asynchronously: keep them until the
+    lead device has finished the batch's step."""
+    if mesh.lead.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(mesh.lead))
+        in_flight.append((event, host_arrays))
+
+
+def _mesh_fold_job(path: str, step, mesh: Mesh, target_bases: int,
+                   n_threads, acc_cap: int, check=None):
+    """Stream the file's batches through a mesh fold step into an
+    accumulator on the lead device and fetch it once; `check(n_reads,
+    n_bases)` runs after every batch.  Returns ((hashes, counts, host
+    meta dict), n_reads, n_bases), the table None when the file holds no
+    batch."""
+    n_dev = int(mesh.devices.size)
+    if n_threads is None:
+        n_threads = min(8, os.cpu_count() or 1)
+    keys, cnt, acc_nu = _make_acc(acc_cap, mesh.lead)
+    acc = (keys, cnt)
+    meta_acc = _meta_init(mesh.lead)
+    in_flight = deque()
+    n_reads = n_bases = n_batches = 0
+    pool = ThreadPoolExecutor(n_threads)
+    try:
+        for words, ends, n_true, parsed in _sharded_batches(
+                path, target_bases, n_dev, pool):
+            n_reads += sum(p[3] for p in parsed)
+            n_bases += sum(p[2] for p in parsed)
+            words_d, ends_d = _mesh_batch(mesh, words, ends, in_flight)
+            with stage("mesh-step"):
+                acc, meta_acc, acc_nu = step(acc, meta_acc, words_d, ends_d,
+                                             [int(n) for n in n_true])
+            _mesh_batch_done(mesh, in_flight, words, ends)
+            n_batches += 1
+            if check is not None:
+                check(n_reads, n_bases)
+    finally:
+        pool.shutdown(wait=False)
+    if n_batches == 0:
+        return None, 0, 0
+    with stage("D2H-table"):
+        hashes, counts, meta_h = _fetch_acc((*acc, acc_nu), acc_cap,
+                                            meta_acc)
+    meta = dict(zip(META_FIELDS, (int(v) for v in meta_h)))
+    return (hashes, counts, meta), n_reads, n_bases
+
+
+def _too_many_kmers():
+    return ValueError("job exceeds 2^31 k-mers: use the single-device path "
+                      "(it spills to a host int64 table) or split the input")
+
+
+def _count_kmers_fastq_mesh(path: str, k: int, cap: int,
+                            target_bases: int, mesh: Mesh, n_threads,
+                            acc_cap):
+    """Data-parallel count_kmers_fastq: per-batch read shards counted on
+    every mesh device, tables gathered and merged into an accumulator on
+    the lead device in ONE step per batch (the reference's only analog
+    is the sequential chunk fold, reference:
+    bionumpy/streams/reductions.py:6-23 + bionumpy/io/parser.py:173-178)."""
+    if acc_cap is None:
+        acc_cap = max(4 * cap, 1 << 22)
+    step = sharded_sparse_count_fold_step(mesh, k, cap, acc_cap)
+
+    def check(n_reads, n_bases):
+        # doomed-job guard, host-side and mid-stream: kmers <= bases -
+        # (k-1)*reads.  The JAX package's mesh accumulator has int32
+        # counts and cannot spill; the port keeps its bound, so the same
+        # inputs raise the same error
+        if n_bases - (k - 1) * n_reads > _SPILL_LIMIT:
+            raise _too_many_kmers()
+
+    table, n_reads, n_bases = _mesh_fold_job(
+        path, step, mesh, target_bases, n_threads, acc_cap, check)
+    if table is None:
+        stats = {"n_reads": 0, "n_bases": 0, "n_kmers": 0}
+        return SparseEncodedCounts(
+            KmerEncoding(DNAEncoding, k), np.empty(0, np.uint64),
+            np.empty(0, np.int64)), stats
+    hashes, counts, meta = table
+    if meta["max_unique"] > cap:
+        new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        logger.warning(
+            "count_kmers_fastq(mesh): shard table overflow (%d > "
+            "cap=%d); rerunning at cap=%d", meta["max_unique"], cap,
+            new_cap)
+        # never shrink the (possibly explicit) acc_cap on rerun
+        return _count_kmers_fastq_mesh(path, k, new_cap, target_bases,
+                                       mesh, n_threads,
+                                       max(acc_cap, 4 * new_cap))
+    if meta["n_kmers"] > _SPILL_LIMIT:
+        raise _too_many_kmers()
+    stats = {"n_reads": n_reads, "n_bases": n_bases,
+             "n_kmers": meta["n_kmers"]}
+    return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
+                               counts), stats
+
+
 def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
                       target_bases: int = TARGET_BUCKET - (1 << 21),
                       device=None, n_threads: int = None,
@@ -873,13 +1075,16 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
     that many or more.  `spill_windows` fetches the accumulator into a
     host table every that many folds.  A malformed batch on the device
     transport raises ValueError at the end of the job.
+    `mesh=` (a parallel.Mesh) splits each batch on read boundaries over
+    the mesh's devices, counts every shard there and merges the shard
+    tables into an accumulator on the lead device, one step a batch
+    (parallel/sparse_parallel.sharded_sparse_count_fold_step); it ships
+    packed words (device_parse does not apply) and ignores
+    spill_windows, as the JAX package's mesh path does.  `device`, when
+    given with a mesh, must be the mesh's lead device.
 
     Returns a SparseEncodedCounts over the DNA k-mer encoding plus a
     stats dict {n_reads, n_bases, n_kmers}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
-            "multi-device)")
     transports = {"auto": None, True: "device", False: "packed",
                   "device": "device", "packed": "packed"}
     if device_parse not in transports:
@@ -888,6 +1093,10 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
     modes = transports[device_parse]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must lie in 1..{MAX_K}, got {k}")
+    if mesh is not None:
+        return _count_kmers_fastq_mesh(path, k, cap, target_bases,
+                                       _checked_mesh(mesh, device),
+                                       n_threads, acc_cap)
     device = resolve_device(device)
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 1)
@@ -1110,22 +1319,27 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
     `pwm`: a PWM, or a (4, w) matrix over ACGT, w <= 32.  `device`: None
     is the card ("cuda"), which must be present; pass "cpu" to run the
     kernel's plain version on the host.  `cap` bounds the matches of one
-    batch: a batch with more raises ValueError.  `mesh=` (multi-device)
-    is not ported yet.
+    batch: a batch with more raises ValueError.  `mesh=` (a
+    parallel.Mesh) splits each batch on read boundaries over the mesh's
+    devices, scans and compacts every shard there and fetches each
+    shard's matches (parallel/sparse_parallel.sharded_pwm_match_step);
+    `cap` then bounds a shard's matches, and `device`, when given, must
+    be the mesh's lead device.
 
     Returns (read indices, in-read offsets, stats {n_reads, n_bases,
     n_matches}), sorted by (read, offset); equal to the JAX package's
     get_motif_matches_fastq on the same file."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
-            "multi-device)")
     matrix = pwm.matrix if hasattr(pwm, "matrix") else np.asarray(pwm)
     matrix32 = np.ascontiguousarray(matrix, np.float32)
     if matrix32.ndim != 2 or matrix32.shape[0] != 4:
         raise ValueError(f"the motif scan needs a (4, w) matrix over ACGT, "
                          f"got shape {matrix32.shape}")
     w = matrix32.shape[1]
+    if mesh is not None:
+        return _motif_matches_fastq_mesh(path, matrix32, threshold, cap,
+                                         target_bases,
+                                         _checked_mesh(mesh, device),
+                                         n_threads)
     device = resolve_device(device)
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 1)
@@ -1201,6 +1415,65 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
     return rows[order], offs[order], stats
 
 
+def _motif_matches_fastq_mesh(path: str, matrix32: np.ndarray,
+                              threshold: float, cap: int, target_bases: int,
+                              mesh: Mesh, n_threads):
+    """get_motif_matches_fastq over a mesh: each batch splits on read
+    boundaries, every shard scores its reads and compacts its match
+    positions on its device (the copy to the host holds the MATCHES),
+    and read indices run across the shards in shard order — the
+    data-parallel twin of get_motif_scores + threshold (reference:
+    bionumpy/sequence/position_weight_matrix.py:85-101,166-196)."""
+    w = matrix32.shape[1]
+    n_dev = int(mesh.devices.size)
+    if n_threads is None:
+        n_threads = min(8, os.cpu_count() or 1)
+    step = sharded_pwm_match_step(mesh, w, cap)
+    matrix_d = torch.from_numpy(matrix32).to(mesh.lead)
+    rows_parts, offs_parts = [], []
+    n_reads = n_bases = n_matches = 0
+    pool = ThreadPoolExecutor(n_threads)
+    try:
+        for words, ends, n_true, parsed in _sharded_batches(
+                path, target_bases, n_dev, pool):
+            # the match fetch below waits for the batch's work
+            words_d, ends_d = _mesh_batch(mesh, words, ends)
+            with stage("mesh-step"):
+                pos, nm, _total = step(words_d, ends_d,
+                                       [int(n) for n in n_true], matrix_d,
+                                       threshold)
+            with stage("D2H-matches"):
+                nm_h = torch.stack([t.to(mesh.lead) for t in nm]).cpu()
+                hits = [int(h) for h in nm_h]
+                pos_h = [p[: min(h, p.numel())].cpu().numpy()
+                         for p, h in zip(pos, hits)]
+            read_base = n_reads
+            for d, (_w, e_host, nb, nr) in enumerate(parsed):
+                if hits[d] > cap:
+                    raise ValueError(f"shard had {hits[d]} matches > cap "
+                                     f"{cap}; raise cap")
+                p = pos_h[d]
+                ends_host = e_host[:nr]
+                r = np.searchsorted(ends_host, p, side="right")
+                starts = np.concatenate([[0], ends_host])[r]
+                rows_parts.append(r + read_base)
+                offs_parts.append(p - starts)
+                read_base += nr
+                n_matches += hits[d]
+                n_bases += nb
+            n_reads = read_base
+    finally:
+        pool.shutdown(wait=False)
+    rows = np.concatenate(rows_parts) if rows_parts \
+        else np.empty(0, np.int64)
+    offs = np.concatenate(offs_parts) if offs_parts \
+        else np.empty(0, np.int64)
+    order = np.lexsort((offs, rows))
+    stats = {"n_reads": n_reads, "n_bases": n_bases,
+             "n_matches": n_matches}
+    return rows[order], offs[order], stats
+
+
 def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
                            cap: int = 1 << 20,
                            target_bases: int = TARGET_BUCKET - (1 << 21),
@@ -1219,18 +1492,22 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
     distinct minimizers of one batch's table; a batch that overflows it
     makes the whole job rerun once at a cap that fits.  `acc_cap`
     (default max(4*cap, 2^22)) bounds the job's distinct minimizers
-    (AccOverflow).  `mesh=` (multi-device) is not ported yet.
+    (AccOverflow).  `mesh=` (a parallel.Mesh) splits each batch on read
+    boundaries over the mesh's devices and merges the shards' tables
+    into an accumulator on the lead device, one step a batch
+    (parallel/sparse_parallel.sharded_minimizer_count_fold_step);
+    `device`, when given with a mesh, must be its lead device.
 
     Returns a SparseEncodedCounts over the DNA k-mer encoding plus a
     stats dict {n_reads, n_bases, n_windows}; equal to the JAX package's
     count_minimizers_fastq on the same file."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
-            "multi-device)")
     if not 1 <= k <= MAX_K or k > window_size:
         raise ValueError(f"k must lie in 1..{MAX_K} and be at most "
                          f"window_size={window_size}, got {k}")
+    if mesh is not None:
+        return _count_minimizers_fastq_mesh(
+            path, k, window_size, cap, target_bases,
+            _checked_mesh(mesh, device), n_threads, acc_cap)
     device = resolve_device(device)
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 1)
@@ -1318,30 +1595,47 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
                                counts), stats
 
 
-def binned_pileup_bed(path: str, chromosome_sizes: dict,
-                      bin_size: int = 1000, mesh=None, device=None):
-    """Whole-genome BINNED coverage track from a BED(.gz) file on one
-    device: the intervals on the chromosomes of `chromosome_sizes` map to
-    concatenated-genome coordinates (GlobalOffset), rebased so that every
-    chromosome starts on a bin edge, and one binned_pileup
-    (ops/tracks.py) over all of them gives the covered-base count per bin;
-    the host fetches the bins once.
+def _count_minimizers_fastq_mesh(path: str, k: int, window_size: int,
+                                 cap: int, target_bases: int, mesh: Mesh,
+                                 n_threads, acc_cap):
+    """count_minimizers_fastq over a mesh: the windowed-min table of every
+    shard of every batch, merged into an accumulator on the lead device
+    in ONE step per batch (the mesh twin of sequence.count_minimizers;
+    reference semantics: bionumpy/sequence/minimizers.py:8-54 +
+    streams/reductions.py:6-23)."""
+    if acc_cap is None:
+        acc_cap = max(4 * cap, 1 << 22)
+    step = sharded_minimizer_count_fold_step(mesh, k, window_size, cap,
+                                             acc_cap)
+    table, n_reads, n_bases = _mesh_fold_job(path, step, mesh, target_bases,
+                                             n_threads, acc_cap)
+    if table is None:
+        return SparseEncodedCounts(
+            KmerEncoding(DNAEncoding, k), np.empty(0, np.uint64),
+            np.empty(0, np.int64)), \
+            {"n_reads": 0, "n_bases": 0, "n_windows": 0}
+    hashes, counts, meta = table
+    if meta["max_unique"] > cap:
+        new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        logger.warning(
+            "count_minimizers_fastq(mesh): shard table overflow (%d > "
+            "cap=%d); rerunning at cap=%d", meta["max_unique"], cap,
+            new_cap)
+        return _count_minimizers_fastq_mesh(
+            path, k, window_size, new_cap, target_bases, mesh, n_threads,
+            max(acc_cap, 4 * new_cap))
+    stats = {"n_reads": n_reads, "n_bases": n_bases,
+             "n_windows": meta["n_kmers"]}
+    return SparseEncodedCounts(KmerEncoding(DNAEncoding, k), hashes,
+                               counts), stats
 
-    `device`: None is the card ("cuda"), which must be present; pass
-    "cpu" to run the plain torch ops on the host.  `mesh=` (multi-device)
-    is not ported yet.  Raises ValueError, as the JAX package does, when
-    the rebased span (bins x bin_size) passes int32: then no bin_size
-    helps (the span is at least the genome's size), and the call must be
-    split per chromosome.
 
-    Returns ({chromosome: int32 per-bin covered-base counts},
-    stats {n_intervals, n_bins}); equal to the JAX package's
-    binned_pileup_bed on the same file."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP queue 1 item 11, "
-            "multi-device)")
-    device = resolve_device(device)
+def _rebased_intervals(path: str, chromosome_sizes: dict, bin_size: int):
+    """The BED file's intervals on the chromosomes of `chromosome_sizes`,
+    mapped to concatenated-genome coordinates (GlobalOffset) and rebased
+    so that every chromosome starts on a bin edge.  Returns (starts,
+    stops, names, bin_base, n_bins); raises ValueError, as the JAX
+    package does, when the rebased span passes int32."""
     with stage("read"):
         data = bnp_open(path).read()
         keep = np.isin(np.asarray(data.chromosome.tolist()),
@@ -1363,23 +1657,75 @@ def binned_pileup_bed(path: str, chromosome_sizes: dict,
     rebased = (g_starts - chrom_base[chrom_of]
                + bin_base[chrom_of] * bin_size)
     rebased_stop = rebased + (g_stops - g_starts)
-    # the device arrays below are int32: a rebased span past 2^31
-    # (human-scale genomes at small bin_size) would wrap silently
+    # the device arrays are int32: a rebased span past 2^31 (human-scale
+    # genomes at small bin_size) would wrap silently
     span = int(bin_base[-1]) * bin_size
     if span > np.iinfo(np.int32).max:
         raise ValueError(
             f"binned_pileup_bed: rebased genome span {span} exceeds "
             f"int32; raise bin_size or split the call per chromosome "
             f"(each chromosome's own span stays within int32)")
+    return rebased, rebased_stop, names, bin_base, n_bins
+
+
+def binned_pileup_bed(path: str, chromosome_sizes: dict,
+                      bin_size: int = 1000, mesh=None, device=None):
+    """Whole-genome BINNED coverage track from a BED(.gz) file on one
+    device: the intervals on the chromosomes of `chromosome_sizes` map to
+    concatenated-genome coordinates (GlobalOffset), rebased so that every
+    chromosome starts on a bin edge, and one binned_pileup
+    (ops/tracks.py) over all of them gives the covered-base count per bin;
+    the host fetches the bins once.
+
+    `device`: None is the card ("cuda"), which must be present; pass
+    "cpu" to run the plain torch ops on the host.  `mesh=` (a
+    parallel.Mesh) splits the intervals row-wise over the mesh's devices,
+    each computes its partial bins and one psum on the lead device merges
+    them (parallel/reductions.sharded_binned_pileup_step); `device`, when
+    given with a mesh, must be its lead device.  Raises ValueError, as
+    the JAX package does, when the rebased span (bins x bin_size) passes
+    int32: then no bin_size helps (the span is at least the genome's
+    size), and the call must be split per chromosome.
+
+    Returns ({chromosome: int32 per-bin covered-base counts},
+    stats {n_intervals, n_bins}); equal to the JAX package's
+    binned_pileup_bed on the same file."""
+    if mesh is not None:
+        mesh = _checked_mesh(mesh, device)
+    else:
+        device = resolve_device(device)
+    rebased, rebased_stop, names, bin_base, n_bins = _rebased_intervals(
+        path, chromosome_sizes, bin_size)
     n_iv = len(rebased)
-    with stage("H2D", n_bytes=8 * n_iv):
-        starts = torch.from_numpy(rebased.astype(np.int32)).to(device)
-        stops = torch.from_numpy(rebased_stop.astype(np.int32)).to(device)
-        valid = torch.ones(n_iv, dtype=torch.bool, device=device)
-    with stage("step"):
-        bins = binned_pileup(starts, stops, valid, n_bins, bin_size)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    if mesh is None:
+        with stage("H2D", n_bytes=8 * n_iv):
+            starts = torch.from_numpy(rebased.astype(np.int32)).to(device)
+            stops = torch.from_numpy(rebased_stop.astype(np.int32)).to(device)
+            valid = torch.ones(n_iv, dtype=torch.bool, device=device)
+        with stage("step"):
+            bins = binned_pileup(starts, stops, valid, n_bins, bin_size)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    else:
+        n_dev = int(mesh.devices.size)
+        per = max(-(-n_iv // n_dev), 1)
+        starts = np.zeros((n_dev, per), np.int32)
+        stops = np.zeros((n_dev, per), np.int32)
+        valid = np.zeros((n_dev, per), bool)
+        for d in range(n_dev):
+            part = slice(d * per, (d + 1) * per)
+            m = len(rebased[part])
+            starts[d, :m] = rebased[part]
+            stops[d, :m] = rebased_stop[part]
+            valid[d, :m] = True
+        with stage("H2D", n_bytes=starts.nbytes + stops.nbytes
+                   + valid.nbytes):
+            shards = [put_sharded(mesh, a) for a in (starts, stops, valid)]
+        with stage("mesh-step"):
+            bins = sharded_binned_pileup_step(mesh, n_bins, bin_size)(
+                *shards)
+            if mesh.lead.type == "cuda":
+                torch.cuda.synchronize(mesh.lead)
     with stage("D2H-table", n_bytes=4 * n_bins):
         bins_h = bins.cpu().numpy()
     out = {name: bins_h[bin_base[i]: bin_base[i + 1]]

@@ -155,6 +155,24 @@ each of which raises on failure:
                query's rows == a numpy recount, kernel 1 launched once for
                the index and once a query; DeBruijnGraph over 1000 reads,
                its contigs equal to the device="cpu" graph's
+ 20. mesh     the four pipelines' mesh= paths on a mesh of the card and
+               on 4 shards of it (one device repeated): count_kmers_fastq
+               over phase 4's file (phase 4's table, kernel 1 once a
+               shard a batch) and again at a shard cap that overflows
+               (the rerun logged, the same table), count_minimizers_fastq
+               (phase 9's table), get_motif_matches_fastq over phase 5's
+               file (phase 5's matches, kernel 3 once a shard a batch),
+               binned_pileup_bed over phase 18's BED (the single-device
+               bins); the histogram, sum-and-n and pileup steps over
+               phase 18's chr21 fragments and the halo k-mer and
+               minimizer steps over a seeded chr21, 4 shards against 1;
+               scaling.measure on 1-8 shards; each job's wall beside the
+               single-device wall of the same call
+ 21. simulate  simulate_chip_seq_reads over the seeded chr21 with a w = 11
+               motif (kernel 3 over the whole chromosome), the reads equal
+               under one seed to those with device="cpu" scores; then
+               simulate_sequences -> get_reverse_complement ->
+               count_kmers on the card against the CPU
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -1112,7 +1130,8 @@ def phase_minimizers_fastq(dev, workdir: str, variants, lengths):
     """count_minimizers_fastq over phase 4's file: warm-up, timed and
     profiled runs; the table must equal a numpy recount of the 64
     variants times their copies, the stats the file's, and kmer_keys must
-    have launched once per batch.  Returns the timed run's launches."""
+    have launched once per batch.  Returns the timed run's launches and
+    table."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     path = os.path.join(workdir, "job.fq.gz")
@@ -1165,7 +1184,7 @@ def phase_minimizers_fastq(dev, workdir: str, variants, lengths):
         "device_busy_ms": prof.get("device_busy_ms"),
         "device_idle_share": prof.get("device_idle_share"),
         "peak_device_bytes": peak, "gpu": gpu_line()}))
-    return launches
+    return launches, counts
 
 
 def phase_minimizers_gc(dev):
@@ -2660,6 +2679,312 @@ def phase_genomic(dev, workdir: str, seqs, phase18: dict):
     return total
 
 
+# phase 20: the meshes, their overflow cap and the scaling sweep
+MESH_SHARDS = 4               # the repeated-device mesh on the one card
+MESH_OVERFLOW_CAP = 1 << 18   # a shard's distinct 31-mers overflow it
+SCALING_SIZES = (1, 2, 4, 8)
+
+
+def seeded_chr21() -> np.ndarray:
+    """Phase 19's seeded chr21 codes (its generator's first draw)."""
+    rng = np.random.default_rng(SEED + 19)
+    return rng.integers(0, 4, CHR21).astype(np.uint8)
+
+
+class _Records:
+    """Collects the log records of one logger while active."""
+
+    def __init__(self, name: str):
+        import logging
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def phase_mesh(dev, workdir: str, counts, stats, min_counts, motif):
+    """The four pipelines' mesh= paths and the mesh steps on the card, on
+    a mesh of the card (create_mesh(1)) and on MESH_SHARDS shards of it
+    (create_mesh(4, devices=[cuda:0] * 4)), every result held to the
+    single-device one of an earlier phase or of this call.  Per mesh:
+    count_kmers_fastq over phase 4's file (warm-up + timed; phase 4's
+    table and stats; kernel 1 once a shard a batch) and once more at a
+    shard cap that overflows (the rerun logged, the same table);
+    count_minimizers_fastq (phase 9's table); get_motif_matches_fastq
+    over phase 5's file (phase 5's matches; kernel 3 once a shard a
+    batch); binned_pileup_bed over phase 18's BED at 1000 (this call's
+    single-device bins).  Then the histogram, sum-and-n and pileup steps
+    over phase 18's chr21 fragments, and the halo k-mer and minimizer
+    steps over the seeded chr21, 4 shards against 1; and
+    scaling.measure on 1, 2, 4 and 8 shards of the card.  Prints each
+    job's wall beside the single-device wall of the same call.  Returns
+    the kernel launches of the mesh jobs."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.ops.tracks import dense_pileup
+    from bionumpy_tpu_torch.parallel import (create_mesh, halo,
+                                             sharded_histogram_step,
+                                             sharded_pileup_step,
+                                             sharded_sum_and_n_step)
+    from bionumpy_tpu_torch.parallel.mesh import put_sharded
+    from bionumpy_tpu_torch.parallel.scaling import measure
+    path = os.path.join(workdir, "job.fq.gz")
+    motif_path = os.path.join(workdir, "motif.fq.gz")
+    bed_path = os.path.join(workdir, "fragments.bed.gz")
+    sizes = {"chr21": CHR21, "chr22": CHR22}
+    pwm, threshold, m_rows, m_offs = motif
+    meshes = {"mesh1": create_mesh(1),
+              f"mesh{MESH_SHARDS}": create_mesh(MESH_SHARDS,
+                                                devices=[dev] * MESH_SHARDS)}
+    walls, launches, batches, splits, idle = {}, {}, {}, {}, {}
+
+    def same_table(got, want, what):
+        if not (np.array_equal(got.label_codes, want.label_codes)
+                and np.array_equal(got.counts, want.counts)):
+            raise AssertionError(f"{what}: the table differs")
+
+    def timed(job, name, fn, warm=True):
+        """fn's result and wall (after one warm-up call when `warm`), its
+        launches and mesh-step calls."""
+        if warm:
+            fn()
+        bt.instrument.reset()
+        kk.reset_launches()
+        pk.reset_launches()
+        out, s = synced_s(fn)
+        walls.setdefault(job, {})[name] = s
+        launches.setdefault(job, {})[name] = {**kk.LAUNCHES, **pk.LAUNCHES}
+        stages = bt.instrument.report()
+        batches.setdefault(job, {})[name] = stages.get(
+            "mesh-step", {}).get("calls", 0)
+        splits.setdefault(job, {})[name] = {
+            k: v["seconds"] for k, v in stages.items()}
+        return out
+
+    def per_shard(job, name, kernel, n_dev):
+        n, got = batches[job][name], launches[job][name][kernel]
+        if got != n * n_dev or not n:
+            raise AssertionError(f"{job} on {name}: {kernel} launched {got} "
+                                 f"times for {n} batches of {n_dev} shards")
+
+    # single-device walls of the same call
+    timed("kmers", "single", lambda: bt.count_kmers_fastq(
+        path, K, cap=1 << 21, device_parse=False, device=dev), warm=False)
+    timed("minimizers", "single", lambda: bt.count_minimizers_fastq(
+        path, MIN_K, MIN_WINDOW, device=dev), warm=False)
+    timed("motif", "single", lambda: bt.get_motif_matches_fastq(
+        motif_path, pwm, threshold, device=dev), warm=False)
+    single_bins = timed("binned_pileup_bed", "single",
+                        lambda: bt.binned_pileup_bed(bed_path, sizes, 1000,
+                                                     device=dev), warm=False)
+    overflow = {}
+    for name, mesh in meshes.items():
+        n_dev = int(mesh.devices.size)
+        got, got_stats = timed("kmers", name, lambda: bt.count_kmers_fastq(
+            path, K, cap=1 << 21, mesh=mesh))
+        same_table(got, counts, f"count_kmers_fastq on {name}")
+        if got_stats != stats:
+            raise AssertionError(f"{name}: stats {got_stats} != {stats}")
+        per_shard("kmers", name, "kmer_keys_kernel", n_dev)
+        prof = profile_job(lambda: bt.count_kmers_fastq(
+            path, K, cap=1 << 21, mesh=mesh), f"mesh kmers {name}")
+        idle[name] = prof.get("device_idle_share")
+        with _Records("bionumpy_tpu_torch.pipeline") as logged:
+            got, _ = timed("kmers_overflow", name, lambda: bt.count_kmers_fastq(
+                path, K, cap=MESH_OVERFLOW_CAP, acc_cap=1 << 23, mesh=mesh),
+                warm=False)
+        reruns = [m for m in logged if "shard table overflow" in m]
+        if len(reruns) != 1:
+            raise AssertionError(f"{name}: {len(reruns)} reruns logged at "
+                                 f"cap {MESH_OVERFLOW_CAP}")
+        overflow[name] = reruns[0]
+        same_table(got, counts, f"the overflow rerun on {name}")
+        got, _ = timed("minimizers", name, lambda: bt.count_minimizers_fastq(
+            path, MIN_K, MIN_WINDOW, mesh=mesh))
+        same_table(got, min_counts, f"count_minimizers_fastq on {name}")
+        per_shard("minimizers", name, "kmer_keys_kernel", n_dev)
+        rows, offs, _ = timed("motif", name, lambda: bt.get_motif_matches_fastq(
+            motif_path, pwm, threshold, mesh=mesh))
+        if not (np.array_equal(rows, m_rows) and np.array_equal(offs, m_offs)):
+            raise AssertionError(f"the motif matches on {name} differ from "
+                                 f"phase 5's")
+        per_shard("motif", name, "pwm_scores_kernel", n_dev)
+        bins, _ = timed("binned_pileup_bed", name, lambda: bt.binned_pileup_bed(
+            bed_path, sizes, 1000, mesh=mesh))
+        if not all(np.array_equal(bins[c], single_bins[0][c]) for c in sizes):
+            raise AssertionError(f"binned_pileup_bed on {name} differs")
+    torch.cuda.empty_cache()
+
+    # the reduction steps over phase 18's chr21 fragments, 4 shards vs 1
+    rng = np.random.default_rng(5)
+    s21, e21 = fragments(rng, BED_INTERVALS, CHR21)
+    lengths = (e21 - s21).astype(np.float32)
+    edges = torch.arange(100, 601, 50, dtype=torch.float32, device=dev)
+    steps = {}
+    for name, mesh in meshes.items():
+        n_dev = int(mesh.devices.size)
+
+        def shards(a):
+            return put_sharded(mesh, a.reshape(n_dev, -1))
+        valid = np.ones(BED_INTERVALS, bool)
+        hist, walls.setdefault("histogram", {})[name] = synced_s(
+            lambda: sharded_histogram_step(mesh, 10)(
+                shards(lengths), shards(valid), edges))
+        (s, n), walls.setdefault("sum_and_n", {})[name] = synced_s(
+            lambda: sharded_sum_and_n_step(mesh)(shards(lengths),
+                                                 shards(valid)))
+        depth, walls.setdefault("pileup", {})[name] = synced_s(
+            lambda: sharded_pileup_step(mesh, CHR21)(
+                shards(s21.astype(np.int32)), shards(e21.astype(np.int32)),
+                shards(valid)))
+        steps[name] = (hist.cpu(), float(s), int(n), depth.cpu())
+        del depth
+    one, many = steps["mesh1"], steps[f"mesh{MESH_SHARDS}"]
+    want_hist = np.histogram(lengths, bins=np.arange(100, 601, 50))[0]
+    want_depth = dense_pileup(
+        torch.from_numpy(s21.astype(np.int32)).to(dev),
+        torch.from_numpy(e21.astype(np.int32)).to(dev),
+        torch.ones(BED_INTERVALS, dtype=torch.bool, device=dev), CHR21).cpu()
+    if not (np.array_equal(one[0].numpy(), want_hist)
+            and torch.equal(one[0], many[0])
+            and one[2] == many[2] == BED_INTERVALS
+            and abs(many[1] - one[1]) <= 1e-5 * abs(one[1])
+            and abs(one[1] - float(lengths.sum(dtype=np.float64)))
+            <= 1e-5 * abs(one[1])
+            and torch.equal(one[3], want_depth)
+            and torch.equal(many[3], want_depth)):
+        raise AssertionError("a reduction step on 4 shards differs from 1 "
+                             "shard or from the recount")
+    del s21, e21, lengths, steps, one, many, want_depth
+
+    # the halo steps over the seeded chr21, 4 shards vs 1
+    codes = seeded_chr21()
+    halo_keys = {}
+    kk.reset_launches()
+    for label, make in (("halo_kmers", lambda m: halo.sharded_kmer_hash_step(
+                            m, K)),
+                        ("halo_minimizers", lambda m: halo.sharded_minimizer_step(
+                            m, MIN_K, MIN_WINDOW))):
+        for name, mesh in meshes.items():
+            blocks, n_true = halo.shard_long_sequence(
+                codes, int(mesh.devices.size))
+            step = make(mesh)
+
+            def run():
+                lo, hi, valid = step(put_sharded(mesh, blocks), n_true)
+                return torch.cat([(a | (b << 32))[v]
+                                  for a, b, v in zip(lo, hi, valid)])
+            keys, walls.setdefault(label, {})[name] = synced_s(run)
+            halo_keys[label, name] = keys
+        if not torch.equal(halo_keys[label, "mesh1"],
+                           halo_keys[label, f"mesh{MESH_SHARDS}"]):
+            raise AssertionError(f"{label}: 4 shards differ from 1")
+    n_windows = {label: int(halo_keys[label, "mesh1"].numel())
+                 for label in ("halo_kmers", "halo_minimizers")}
+    if n_windows != {"halo_kmers": CHR21 - K + 1,
+                     "halo_minimizers": CHR21 - MIN_WINDOW + 1}:
+        raise AssertionError(f"halo windows {n_windows}")
+    halo_launches = kk.LAUNCHES["kmer_keys_kernel"]
+    del halo_keys, codes
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    scaling = measure(SCALING_SIZES, n_bases=1 << 24, cap=1 << 18, iters=3,
+                      devices=[dev] * max(SCALING_SIZES))
+    walls["scaling_s"] = time.perf_counter() - t0
+    log(f"[mesh] exact on 1 and {MESH_SHARDS} shards: count_kmers_fastq "
+        f"(and its overflow rerun), count_minimizers_fastq, "
+        f"get_motif_matches_fastq, binned_pileup_bed; the histogram, "
+        f"sum-and-n and pileup steps; the halo steps over {CHR21} bases "
+        f"({halo_launches} kernel-1 launches)")
+    log("[mesh] " + json.dumps({"walls_s": walls, "launches": launches,
+                                "mesh_steps": batches, "reruns": overflow,
+                                "kmers_device_idle_share": idle,
+                                "gpu": gpu_line()}))
+    log("[mesh] stages_s " + json.dumps(splits))
+    for rec in scaling:
+        log("[mesh] scaling " + json.dumps(rec))
+    out = {name: {kernel: sum(launches[job][name][kernel]
+                              for job in ("kmers", "minimizers", "motif"))
+                  for kernel in ("kmer_keys_kernel", "pwm_scores_kernel")}
+           for name in meshes}
+    return out
+
+
+def phase_simulate(dev):
+    """simulate_chip_seq_reads over the seeded chr21 (46,709,983 bases)
+    with a seeded w = 11 motif at the settings' default coverage: kernel 3
+    scores the whole chromosome once; under one seed the reads equal
+    those of the same call with device="cpu" (kernel 3's plain version),
+    whose window scores equal the card's bit for bit.  Then
+    simulate_sequences -> get_reverse_complement -> count_kmers, on the
+    card and on the CPU, as tests/test_user_flows.py chains them.
+    Returns kernel 3's launches in the card's simulation."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import pwm_kernels as pk
+    from bionumpy_tpu_torch.simulate import chipseq
+    ref = bt.EncodedArray(seeded_chr21(), bt.DNAEncoding)
+    pwm = pwm_matrix(SEED, MOTIF_WINDOW)
+    settings = chipseq.ChipSeqSimulationSettings(pwm)
+    out, reads = {}, {}
+    for device in (dev, "cpu"):
+        chipseq.rng = np.random.default_rng(SEED + 21)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        reads[str(device)] = bt.simulate.simulate_chip_seq_reads(
+            ref, settings, sequence_name="chr21", device=device)
+        out[f"simulate_chip_seq_reads_{device}_s"] = \
+            time.perf_counter() - t0
+        out[f"launches_{device}"] = dict(pk.LAUNCHES)
+    launches = out[f"launches_{dev}"]["pwm_scores_kernel"]
+    if launches != 1 or out["launches_cpu"]["pwm_scores_kernel"]:
+        raise AssertionError(f"pwm_scores_kernel launched {launches} times "
+                             f"for one chromosome on the card")
+    card, cpu = reads[str(dev)], reads["cpu"]
+    n_reads = settings.coverage * CHR21 // settings.read_length
+    if not (len(card) == len(cpu) == n_reads and all(
+            np.array_equal(np.asarray(getattr(card, f)),
+                           np.asarray(getattr(cpu, f)))
+            for f in ("start", "stop")) and
+            card.strand.tolist() == cpu.strand.tolist() and
+            card.chromosome[:3].tolist() == ["chr21"] * 3):
+        raise AssertionError("the simulated reads differ between the card's "
+                             "and the CPU's scores")
+    scores = {str(d): chipseq._window_scores(ref, pwm, d)
+              for d in (dev, "cpu")}
+    if not np.array_equal(scores[str(dev)], scores["cpu"]):
+        raise AssertionError("get_motif_scores on the card differs from its "
+                             "plain version")
+    del reads, card, cpu, scores
+    rng = np.random.default_rng(1)
+    sim = bt.simulate.simulate_sequences(
+        "ACGT", {f"s{i}": int(n)
+                 for i, n in enumerate(rng.integers(40, 60, 20))}, rng=rng)
+    rc = bt.get_reverse_complement(sim.sequence)
+    kk.reset_launches()
+    chained = [bt.count_kmers(bt.as_encoded_array(rc.tolist(),
+                                                  bt.DNAEncoding), 5,
+                              device=d) for d in (dev, "cpu")]
+    if not np.array_equal(chained[0].counts, chained[1].counts) or \
+            kk.LAUNCHES["kmer_keys_kernel"] != 1:
+        raise AssertionError("the simulate -> reverse complement -> "
+                             "count_kmers chain differs on the card")
+    log(f"[simulate] exact: {n_reads} ChIP-seq reads over {CHR21} bases, "
+        f"kernel 3 launched {launches} time(s); the simulate -> reverse "
+        f"complement -> count_kmers chain")
+    log("[simulate] " + json.dumps({**out, "gpu": gpu_line()}))
+    return {"pwm_scores_kernel": launches,
+            "kmer_keys_kernel": kk.LAUNCHES["kmer_keys_kernel"]}
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2691,8 +3016,9 @@ def main() -> int:
             stages)
         motif_launches, motif, motif_wall = run_phase(
             "motif", phase_motif, dev, workdir, variants, lengths)
-        mfq_launches = run_phase("minimizers-fastq", phase_minimizers_fastq,
-                                 dev, workdir, variants, lengths)
+        mfq_launches, min_counts = run_phase(
+            "minimizers-fastq", phase_minimizers_fastq, dev, workdir,
+            variants, lengths)
         op_rows = [run_phase("composition", phase_composition, dev, workdir,
                              variants, lengths)]
         api_launches, seqs, c31 = run_phase("user-api", phase_user_api, dev,
@@ -2724,10 +3050,14 @@ def main() -> int:
         genomic_launches = run_phase("genomic", phase_genomic, dev, workdir,
                                      seqs, phase18)
         del seqs, phase18
+        mesh_launches = run_phase("mesh", phase_mesh, dev, workdir, counts,
+                                  stats, min_counts, motif)
+        del min_counts
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
                              batch_inputs(SEED))
+    sim_launches = run_phase("simulate", phase_simulate, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],
@@ -2743,13 +3073,17 @@ def main() -> int:
         "open_config3": config3_launches["kmer_keys_kernel"],
         "open_records": records_launches["kmer_keys_kernel"],
         "intervals": interval_launches["kmer_keys_kernel"],
-        "genomic": genomic_launches["kmer_keys_kernel"]}
+        "genomic": genomic_launches["kmer_keys_kernel"],
+        **{f"{name}_jobs": n["kmer_keys_kernel"]
+           for name, n in mesh_launches.items()},
+        "simulate": sim_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],
         "kmer_ops": ops_launches["kmer_fullsum_kernel"],
         "intervals": interval_launches["kmer_fullsum_kernel"],
-        "genomic": genomic_launches["kmer_fullsum_kernel"]}
+        "genomic": genomic_launches["kmer_fullsum_kernel"],
+        "mesh": 0, "simulate": 0}
     rows[2]["launches"] = motif_launches["pwm_scores_kernel"]
     rows[2]["launches_by_path"] = {
         "motif": motif_launches["pwm_scores_kernel"],
@@ -2759,7 +3093,10 @@ def main() -> int:
             "pwm_scores_kernel"],
         "open_records": records_launches["pwm_scores_kernel"],
         "intervals": interval_launches["pwm_scores_kernel"],
-        "genomic": genomic_launches["pwm_scores_kernel"]}
+        "genomic": genomic_launches["pwm_scores_kernel"],
+        **{f"{name}_jobs": n["pwm_scores_kernel"]
+           for name, n in mesh_launches.items()},
+        "simulate": sim_launches["pwm_scores_kernel"]}
     print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

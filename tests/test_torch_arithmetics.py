@@ -471,8 +471,8 @@ def test_binned_pileup_bed_only_foreign_records(tmp_path):
 
 
 def test_binned_pileup_bed_span_error_mesh_and_card(tmp_path):
-    """JAX's int32 span check, with its message, in both; mesh= names
-    the multi-device item; the default device is the card."""
+    """JAX's int32 span check, with its message, in both; mesh= takes a
+    parallel.Mesh; the default device is the card."""
     bed = tmp_path / "a.bed"
     bed.write_text("chrA\t100\t200\n")
     big = {"chrA": 2_500_000_000, "chrB": 2_500_000_000}
@@ -484,7 +484,7 @@ def test_binned_pileup_bed_span_error_mesh_and_card(tmp_path):
             run()
         messages.append(str(err.value))
     assert messages[0] == messages[1]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpipe.binned_pileup_bed(str(bed), {"chrA": 1000}, mesh=object())
     import torch
     if not torch.cuda.is_available():

@@ -913,3 +913,89 @@ def test_count_mutation_types_genomic_with_a_card(cuda):
     assert dict(zip([str(x) for x in got.alphabet], got.counts.tolist())) \
         == _sbs96_recount(seqs, chroms, pos, alts)
     assert kk.LAUNCHES["kmer_keys_kernel"] == 0
+
+
+def _mesh4(dev):
+    from bionumpy_tpu_torch.parallel import create_mesh
+    return create_mesh(4, devices=[dev] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["kmers", "minimizers"])
+def test_mesh_fold_step_on_card_matches_cpu(cuda, kind):
+    """Three batches through a 4-shard fold step on the card and on a
+    4-shard CPU mesh: equal accumulators and metas, and kernel 1
+    launched once a shard a batch on the card."""
+    from bionumpy_tpu_torch.parallel import sparse_parallel as sp
+    from bionumpy_tpu_torch.parallel.mesh import put_sharded
+    from bionumpy_tpu_torch.pipeline import _make_acc, _meta_init
+    cap, acc_cap = 1 << 14, 1 << 18
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = _mesh4(dev)
+        step = sp.sharded_sparse_count_fold_step(mesh, 31, cap, acc_cap) \
+            if kind == "kmers" else \
+            sp.sharded_minimizer_count_fold_step(mesh, 21, 30, cap, acc_cap)
+        keys, cnt, _ = _make_acc(acc_cap, dev)
+        acc, meta = (keys, cnt), _meta_init(dev)
+        kk.reset_launches()
+        for b in range(3):
+            codes, lengths, *_ = _batch(100 + b, n_rows=400)
+            words, ends, n_true = sp.shard_packed_reads(codes, lengths, 4)
+            acc, meta, nu = step(acc, meta,
+                                 put_sharded(mesh, words.view(np.int32)),
+                                 put_sharded(mesh, ends), n_true)
+        nu = int(nu)
+        results.append((acc[0][:nu].cpu(), acc[1][:nu].cpu(), meta.cpu(),
+                        kk.LAUNCHES["kmer_keys_kernel"]))
+    (gk, gc, gm, launches), (wk, wc, wm, _) = results
+    assert torch.equal(gk, wk) and torch.equal(gc, wc)
+    assert torch.equal(gm, wm)
+    assert launches == 3 * 4
+
+
+@pytest.mark.cuda
+def test_mesh_pwm_match_step_on_card_matches_cpu(cuda):
+    from bionumpy_tpu_torch.parallel import sparse_parallel as sp
+    from bionumpy_tpu_torch.parallel.mesh import put_sharded
+    codes, lengths, *_ = _batch(31, n_rows=1000)
+    words, ends, n_true = sp.shard_packed_reads(codes, lengths, 4)
+    rng = np.random.default_rng(32)
+    matrix = torch.from_numpy(
+        np.log(rng.dirichlet(np.ones(4), 11).T).astype(np.float32))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = _mesh4(dev)
+        pk.reset_launches()
+        pos, nm, total = sp.sharded_pwm_match_step(mesh, 11, 1 << 16)(
+            put_sharded(mesh, words.view(np.int32)), put_sharded(mesh, ends),
+            n_true, matrix, -11.0)
+        out.append(([p[: int(n)].cpu() for p, n in zip(pos, nm)],
+                    int(total), pk.LAUNCHES["pwm_scores_kernel"]))
+    (gpos, gtotal, launches), (wpos, wtotal, _) = out
+    assert gtotal == wtotal > 0
+    assert all(torch.equal(a, b) for a, b in zip(gpos, wpos))
+    assert launches == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_of", ["kmers", "minimizers"])
+def test_mesh_halo_steps_on_card_match_one_shard(cuda, step_of):
+    """A 4-shard halo step on the card equals one shard on the card and
+    4 shards on the CPU, at the valid positions."""
+    from bionumpy_tpu_torch.parallel import halo
+    from bionumpy_tpu_torch.parallel import create_mesh
+    from bionumpy_tpu_torch.parallel.mesh import put_sharded
+    codes = np.random.default_rng(41).integers(0, 4, 300_007).astype(
+        np.uint8)
+    got = []
+    for dev, n in ((cuda, 4), (cuda, 1), (torch.device("cpu"), 4)):
+        mesh = create_mesh(n, devices=[dev] * n)
+        step = halo.sharded_kmer_hash_step(mesh, 31) if step_of == "kmers" \
+            else halo.sharded_minimizer_step(mesh, 21, 30)
+        blocks, n_true = halo.shard_long_sequence(codes, n)
+        lo, hi, valid = [torch.cat(p).cpu() for p in step(
+            put_sharded(mesh, blocks), n_true)]
+        got.append((lo | (hi << 32))[valid])
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    assert got[0].numel() > 0

@@ -124,7 +124,7 @@ def test_zero_byte_file(tmp_path):
 def test_unported_and_bad_options_raise(tmp_path):
     path = tmp_path / "reads.fq"
     path.write_bytes(_fastq(5, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpipe.count_minimizers_fastq(str(path), device="cpu", mesh=object())
     with pytest.raises(ValueError, match="window_size"):
         tpipe.count_minimizers_fastq(str(path), 21, 20, device="cpu")

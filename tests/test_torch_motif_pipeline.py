@@ -144,7 +144,7 @@ def test_matrix_input_and_unported_options(tmp_path):
     want = tpipe.get_motif_matches_fastq(str(path), PWM_PORT, THRESHOLD,
                                          device="cpu")
     _assert_same(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpipe.get_motif_matches_fastq(str(path), PWM_PORT, THRESHOLD,
                                       device="cpu", mesh=object())
     with pytest.raises(ValueError, match=r"\(4, w\)"):

@@ -153,5 +153,6 @@ def test_zero_byte_file(tmp_path):
 def test_unported_options_raise(tmp_path, kw):
     path = tmp_path / "reads.fq"
     path.write_bytes(_fastq(5, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_pipeline.py)
+    with pytest.raises(TypeError, match="Mesh"):
         tpipe.count_kmers_fastq(str(path), device="cpu", **kw)
