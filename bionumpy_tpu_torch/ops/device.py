@@ -1,7 +1,8 @@
 """Device plumbing: the device an entry point runs on, power-of-two
-bucket sizes and the flat ragged transport (the port's copy of
+bucket sizes, the flat ragged transport (the port's copy of
 bionumpy_tpu/ops/device.py: bucket_size, flat_and_lengths,
-distance_to_row_end).
+distance_to_row_end) and the one fetch of a table's rows to the host
+(fetch_rows).
 
 The port runs eagerly and needs no static shapes, but it keeps the JAX
 package's buckets so that both packages cut, pad and count every batch
@@ -12,6 +13,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..instrument import stage
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,3 +66,14 @@ def distance_to_row_end(lengths: np.ndarray) -> np.ndarray:
     ends = np.cumsum(lengths)
     return (np.repeat(ends, lengths) -
             np.arange(total, dtype=np.int64)).astype(np.int32)
+
+
+def fetch_rows(*parts: torch.Tensor, rows: int) -> np.ndarray:
+    """The device tensors as one int64 host array, in one copy: the
+    fetch of a table's live rows (`rows` of them) and whatever rides
+    with them.  The copy is the `D2H` span, with its bytes and rows."""
+    flat = parts[0].to(torch.int64) if len(parts) == 1 else \
+        torch.cat([p.to(torch.int64) for p in parts])
+    with stage("D2H", n_bytes=8 * flat.numel(), rows=rows,
+               device=flat.is_cuda):
+        return flat.cpu().numpy()

@@ -23,7 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device import bucket_size, distance_to_row_end, resolve_device
+from ..instrument import add, stage
+from .device import (bucket_size, distance_to_row_end, fetch_rows,
+                     resolve_device)
 from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
                            limbs_at, window_limbs_plain)
 
@@ -109,9 +111,11 @@ def sorted_runs_from_keys(keys: torch.Tensor, cap: int):
     keys, and compact the run starts to the front of a `cap`-row buffer.
     Returns (uniq_keys, run_starts, n_unique, n_valid); the last two are
     device scalars and n_unique may exceed cap (the table then holds the
-    first cap runs)."""
+    first cap runs).  Every table sort of the port runs here, as the
+    `sort` span (its rows: the keys sorted)."""
     n = keys.numel()
-    s = torch.sort(keys).values
+    with stage("sort", rows=n, device=keys.is_cuda):
+        s = torch.sort(keys).values
     n_valid = (s != SENTINEL).sum()
     is_new = torch.ones(n, dtype=torch.bool, device=keys.device)
     is_new[1:] = s[1:] != s[:-1]
@@ -197,21 +201,24 @@ def sparse_count_tables(words: torch.Tensor, ends: torch.Tensor, k: int,
                         n_true: int, cap: int = 1 << 20):
     """Sorted (hashes uint64, counts int64) host table of one packed chunk:
     the device sort + compaction, then a fetch of the first n_unique rows
-    only.  A chunk with more than `cap` distinct k-mers is compacted again
-    at a cap that fits (the JAX package's doubling loop)."""
+    only.  A chunk with more than `cap` distinct k-mers is sorted and
+    compacted again at a cap that fits (the JAX package's doubling loop;
+    each rerun counts as `cap-rerun`)."""
     n_positions = (words.numel() - 2) * WORD_BASES
     keys = kmer_keys(words, ends, k, n_true)
     while True:
         uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
             keys, min(cap, n_positions))
-        n_uni = int(n_unique)
+        with stage("D2H-meta", device=keys.is_cuda):
+            n_uni = int(n_unique)
         if n_uni <= cap or cap >= n_positions:
             break
+        add("cap-rerun", 0.0)
         cap = max(cap * 2, 1 << max(n_uni - 1, 1).bit_length())
     counts = counts_from_runs(run_starts, n_unique, n_valid,
                               run_starts.numel())
-    table = torch.stack([uniq[:n_uni], counts[:n_uni]]).cpu().numpy()
-    return table[0].view(np.uint64), table[1]
+    rows = fetch_rows(uniq[:n_uni], counts[:n_uni], rows=n_uni)
+    return rows[:n_uni].view(np.uint64), rows[n_uni:]
 
 
 def kmer_fullsum_packed(words: torch.Tensor, k: int) -> torch.Tensor:

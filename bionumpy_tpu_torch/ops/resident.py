@@ -13,7 +13,9 @@ Every device path in sequence/ asks for `device_seqs(seq, device)`; the
 first caller pays the host pack + one upload, later callers on the same
 device get the cached handle, so a chained `count_kmers(s, 31);
 get_kmers(s, 15); count_kmers(s, 5)` uploads the sequence data once
-(TRANSFER_COUNT counts the uploads).
+(TRANSFER_COUNT counts the uploads).  An upload is the `upload` span,
+over `flatten` (the ragged array's flat codes), `pack` (the 2-bit pack,
+its bytes) and `H2D` (the copy, with its device time).
 
 The cache lives on the array under one attribute, a dict keyed by device,
 so a handle made for the CPU is never served to a card call.  The only
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..instrument import stage
 from .device import flat_and_lengths, resolve_device
 from .kmers import WORD_BASES, prepare_packed
 
@@ -64,9 +67,13 @@ def _device_key(device: torch.device) -> torch.device:
 def _build(flat: np.ndarray, lengths: np.ndarray, min_bucket: int,
            device: torch.device) -> DeviceSeqs:
     global TRANSFER_COUNT, TRANSFER_BYTES
-    words, ends, n = prepare_packed(flat, lengths, min_bucket)
-    words_d = torch.from_numpy(words.view(np.int32)).to(device)
-    ends_d = torch.from_numpy(ends).to(device)
+    with stage("pack") as span:
+        words, ends, n = prepare_packed(flat, lengths, min_bucket)
+        span.bytes = words.nbytes + ends.nbytes
+    with stage("H2D", n_bytes=words.nbytes + ends.nbytes,
+               device=device.type == "cuda"):
+        words_d = torch.from_numpy(words.view(np.int32)).to(device)
+        ends_d = torch.from_numpy(ends).to(device)
     TRANSFER_COUNT += 1
     TRANSFER_BYTES += words.nbytes + ends.nbytes
     return DeviceSeqs(words_d, ends_d, n, np.asarray(lengths))
@@ -81,8 +88,10 @@ def device_seqs(sequence, device=None,
     cached = cache.get(key) if cache is not None else None
     if cached is not None and cached.n_positions >= min_bucket:
         return cached
-    flat, lengths = flat_and_lengths(sequence)
-    ds = _build(flat, lengths, min_bucket, key)
+    with stage("upload"):
+        with stage("flatten"):
+            flat, lengths = flat_and_lengths(sequence)
+        ds = _build(flat, lengths, min_bucket, key)
     try:
         if cache is None:
             cache = {}

@@ -19,7 +19,10 @@ faster.  Then:
 
 Host threads prepare later batches while the device counts earlier
 ones, so wall time approaches max(host stage, device stage) instead of
-the sum.  Every stage reports through bionumpy_tpu_torch.instrument.
+the sum.  Every stage reports through bionumpy_tpu_torch.instrument:
+the entry points are call spans, the stages that enqueue device work
+carry its device time, and the tasks handed to other threads carry the
+call's id (instrument.carried).
 Hashes, counts and stats equal those of the JAX package's
 count_kmers_fastq on the same file.
 
@@ -56,10 +59,10 @@ from . import native
 from .encodings import DNAEncoding
 from .encodings.kmer_encodings import KmerEncoding
 from .genomic_data.global_offset import GlobalOffset
-from .instrument import stage
+from .instrument import add, call_span, carried, stage
 from .io.files import bnp_open
 from .io.pgzip import _inflate_segment, inflate_members, member_offsets
-from .ops.device import bucket_size, resolve_device
+from .ops.device import bucket_size, fetch_rows, resolve_device
 from .ops.kmer_kernels import MAX_K
 from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
 from .ops.minimizers import minimizer_sentinel_table_packed
@@ -384,8 +387,8 @@ class _OverlappedRead:
         self._read = 0
         self._done = self.size == 0
         self._error = None
-        self._thread = threading.Thread(target=self._run, args=(path,),
-                                        daemon=True)
+        self._thread = threading.Thread(target=carried(self._run),
+                                        args=(path,), daemon=True)
         self._thread.start()
 
     def _run(self, path):
@@ -726,7 +729,7 @@ def _prefetched(gen: Iterator, depth: int = 2) -> Iterator:
         except BaseException as e:  # propagate into the consumer
             q.put(e)
 
-    t = threading.Thread(target=run, daemon=True)
+    t = threading.Thread(target=carried(run), daemon=True)
     t.start()
     while True:
         item = q.get()
@@ -850,13 +853,14 @@ def _fetch_acc(acc, acc_cap: int, meta_dev: torch.Tensor = None):
     keys, cnt, nu_dev = acc
     probe = nu_dev.reshape(1) if meta_dev is None else \
         torch.cat([nu_dev.reshape(1), meta_dev])
-    probe = probe.cpu().numpy()
+    with stage("D2H-meta", device=probe.is_cuda):
+        probe = probe.cpu().numpy()
     nu = int(probe[0])
     meta_h = None if meta_dev is None else probe[1:]
     if nu >= acc_cap:
         raise AccOverflow(acc_cap, meta_h)
-    table = torch.stack([keys[:nu], cnt[:nu]]).cpu().numpy()
-    hashes, counts = table[0].view(np.uint64), table[1]
+    table = fetch_rows(keys[:nu], cnt[:nu], rows=nu)
+    hashes, counts = table[:nu].view(np.uint64), table[nu:]
     if meta_dev is None:
         return hashes, counts
     return hashes, counts, meta_h
@@ -941,7 +945,8 @@ def _mesh_batch(mesh: Mesh, words, ends, in_flight: deque = None):
     """One batch's shards on their devices (words as int32).  With
     `in_flight`, the host waits while _IN_FLIGHT earlier batches are
     unfinished (_mesh_batch_done records them)."""
-    with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+    with stage("H2D", n_bytes=words.nbytes + ends.nbytes,
+               device=mesh.lead.type == "cuda"):
         shards = (put_sharded(mesh, words.view(np.int32)),
                   put_sharded(mesh, ends))
     while in_flight and len(in_flight) >= _IN_FLIGHT:
@@ -981,7 +986,7 @@ def _mesh_fold_job(path: str, step, mesh: Mesh, target_bases: int,
             n_reads += sum(p[3] for p in parsed)
             n_bases += sum(p[2] for p in parsed)
             words_d, ends_d = _mesh_batch(mesh, words, ends, in_flight)
-            with stage("mesh-step"):
+            with stage("mesh-step", device=mesh.lead.type == "cuda"):
                 acc, meta_acc, acc_nu = step(acc, meta_acc, words_d, ends_d,
                                              [int(n) for n in n_true])
             _mesh_batch_done(mesh, in_flight, words, ends)
@@ -1034,6 +1039,7 @@ def _count_kmers_fastq_mesh(path: str, k: int, cap: int,
     hashes, counts, meta = table
     if meta["max_unique"] > cap:
         new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        add("cap-rerun", 0.0)
         logger.warning(
             "count_kmers_fastq(mesh): shard table overflow (%d > "
             "cap=%d); rerunning at cap=%d", meta["max_unique"], cap,
@@ -1050,6 +1056,7 @@ def _count_kmers_fastq_mesh(path: str, k: int, cap: int,
                                counts), stats
 
 
+@call_span
 def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
                       target_bases: int = TARGET_BUCKET - (1 << 21),
                       device=None, n_threads: int = None,
@@ -1133,11 +1140,12 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         """Launch one batch's table; its meta folds into the device meta
         accumulator.  Nothing waits for the device here except the
         bounded backpressure."""
-        with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+        with stage("H2D", n_bytes=words.nbytes + ends.nbytes,
+                   device=on_card):
             words_d = torch.from_numpy(words.view(np.int32)).to(
                 device, non_blocking=True)
             ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
-        with stage("dispatch"):
+        with stage("dispatch", device=on_card):
             keys, cnt, meta = kmer_sentinel_table_packed(
                 words_d, ends_d, k, nb, cap)
             _meta_add_packed(meta_acc, meta)
@@ -1148,9 +1156,9 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         """The device-parse twin of count_packed: the raw bytes go over,
         and the scan waits once for the device to learn the batch's base
         count (ops/parse.py)."""
-        with stage("H2D", n_bytes=padded.nbytes):
+        with stage("H2D", n_bytes=padded.nbytes, device=on_card):
             raw_d = torch.from_numpy(padded).to(device, non_blocking=True)
-        with stage("dispatch"):
+        with stage("dispatch", device=on_card):
             table, meta = fastq_to_sparse_kmer_table(
                 raw_d, lut_d, n_true, padded.shape[0] // 16, k, cap)
             _meta_add_device(meta_acc, meta)
@@ -1164,7 +1172,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         while len(pending) >= ACC_FOLD or (force and pending):
             batch = pending[:ACC_FOLD]
             del pending[:ACC_FOLD]
-            with stage("device-fold"):
+            with stage("device-fold", device=on_card):
                 acc = _fold_program_impl(acc, batch, acc_cap)
             n_folds += 1
 
@@ -1236,8 +1244,8 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         for raw in batches:
             if prep_fut is not None:
                 prepped = prep_fut.result()
-                prep_fut = worker.submit(prep, chosen or mode_for(i + 1),
-                                         raw)
+                prep_fut = worker.submit(carried(prep),
+                                         chosen or mode_for(i + 1), raw)
                 launch(prepped)
                 now = time.perf_counter()
                 batch_times[prepped[0]] = min(
@@ -1247,7 +1255,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
                 if chosen is None and i >= 2:
                     chosen = min(batch_times, key=batch_times.get)
             else:
-                prep_fut = worker.submit(prep, mode_for(i), raw)
+                prep_fut = worker.submit(carried(prep), mode_for(i), raw)
         if prep_fut is not None:
             launch(prep_fut.result())
     finally:
@@ -1267,6 +1275,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         # redo the whole job ONCE at a cap that fits (the meta carries
         # the true per-batch distinct count, so one rerun suffices)
         new_cap = 1 << (max_unique - 1).bit_length()
+        add("cap-rerun", 0.0)
         logger.warning(
             "count_kmers_fastq: batch table overflow (%d > cap=%d); "
             "rerunning at cap=%d", max_unique, cap, new_cap)
@@ -1279,7 +1288,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
             device=device, n_threads=n_threads, device_parse=device_parse,
             acc_cap=new_acc_cap, spill_windows=spill_windows)
 
-    with stage("device-merge"):
+    with stage("device-merge", device=on_card):
         fold_pending(force=True)
     try:
         with stage("D2H-table"):
@@ -1306,6 +1315,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
                                counts), stats
 
 
+@call_span
 def get_motif_matches_fastq(path: str, pwm, threshold: float,
                             cap: int = 1 << 20,
                             target_bases: int = TARGET_BUCKET - (1 << 21),
@@ -1341,6 +1351,7 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
                                          _checked_mesh(mesh, device),
                                          n_threads)
     device = resolve_device(device)
+    on_card = device.type == "cuda"
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 1)
     matrix_d = torch.from_numpy(matrix32).to(device)
@@ -1369,11 +1380,12 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
     def launch(parsed):
         nonlocal pending, n_reads, n_bases
         words, ends, nb, nr = parsed
-        with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+        with stage("H2D", n_bytes=words.nbytes + ends.nbytes,
+                   device=on_card):
             words_d = torch.from_numpy(words.view(np.int32)).to(
                 device, non_blocking=True)
             ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
-        with stage("dispatch"):
+        with stage("dispatch", device=on_card):
             scores = pwm_scores_packed(words_d, matrix_d, w)
             pos_d, nm_d = pwm_match_compact(scores, ends_d, nb, threshold,
                                             w, cap)
@@ -1393,7 +1405,7 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
         # the worker parses batch i+1 while batch i launches
         parsed = None
         for raw in _prefetched(_batch_arrays(path, target_bases, pool)):
-            nxt = worker.submit(_parse_batch, raw)
+            nxt = worker.submit(carried(_parse_batch), raw)
             if parsed is not None:
                 launch(parsed.result())
             parsed = nxt
@@ -1438,7 +1450,7 @@ def _motif_matches_fastq_mesh(path: str, matrix32: np.ndarray,
                 path, target_bases, n_dev, pool):
             # the match fetch below waits for the batch's work
             words_d, ends_d = _mesh_batch(mesh, words, ends)
-            with stage("mesh-step"):
+            with stage("mesh-step", device=mesh.lead.type == "cuda"):
                 pos, nm, _total = step(words_d, ends_d,
                                        [int(n) for n in n_true], matrix_d,
                                        threshold)
@@ -1474,6 +1486,7 @@ def _motif_matches_fastq_mesh(path: str, matrix32: np.ndarray,
     return rows[order], offs[order], stats
 
 
+@call_span
 def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
                            cap: int = 1 << 20,
                            target_bases: int = TARGET_BUCKET - (1 << 21),
@@ -1509,6 +1522,7 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
             path, k, window_size, cap, target_bases,
             _checked_mesh(mesh, device), n_threads, acc_cap)
     device = resolve_device(device)
+    on_card = device.type == "cuda"
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 1)
     if acc_cap is None:
@@ -1522,17 +1536,18 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
     def launch(parsed):
         nonlocal acc, n_reads, n_bases, n_batches
         words, ends, nb, nr = parsed
-        with stage("H2D", n_bytes=words.nbytes + ends.nbytes):
+        with stage("H2D", n_bytes=words.nbytes + ends.nbytes,
+                   device=on_card):
             words_d = torch.from_numpy(words.view(np.int32)).to(
                 device, non_blocking=True)
             ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
-        with stage("dispatch"):
+        with stage("dispatch", device=on_card):
             keys, cnt, meta = minimizer_sentinel_table_packed(
                 words_d, ends_d, nb, k, n_kmers, cap)
             _meta_add_packed(meta_acc, meta)
-        with stage("device-fold"):
+        with stage("device-fold", device=on_card):
             acc = _fold_program_impl(acc, [(keys, cnt)], acc_cap)
-        if device.type == "cuda":
+        if on_card:
             # the asynchronous copies read the host arrays: keep them
             # until the batch's work is done, _IN_FLIGHT batches at most
             event = torch.cuda.Event()
@@ -1551,7 +1566,7 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
         # the worker parses batch i+1 while batch i launches
         parsed = None
         for raw in _prefetched(_batch_arrays(path, target_bases, pool)):
-            nxt = worker.submit(_parse_batch, raw)
+            nxt = worker.submit(carried(_parse_batch), raw)
             if parsed is not None:
                 launch(parsed.result())
             parsed = nxt
@@ -1571,6 +1586,7 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
         # a batch's table was truncated: redo the job ONCE at a cap that
         # fits (the meta carries every batch's true distinct count)
         new_cap = 1 << (max_unique - 1).bit_length()
+        add("cap-rerun", 0.0)
         logger.warning(
             "count_minimizers_fastq: batch table overflow (%d > cap=%d); "
             "rerunning at cap=%d", max_unique, cap, new_cap)
@@ -1617,6 +1633,7 @@ def _count_minimizers_fastq_mesh(path: str, k: int, window_size: int,
     hashes, counts, meta = table
     if meta["max_unique"] > cap:
         new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        add("cap-rerun", 0.0)
         logger.warning(
             "count_minimizers_fastq(mesh): shard table overflow (%d > "
             "cap=%d); rerunning at cap=%d", meta["max_unique"], cap,
@@ -1668,6 +1685,7 @@ def _rebased_intervals(path: str, chromosome_sizes: dict, bin_size: int):
     return rebased, rebased_stop, names, bin_base, n_bins
 
 
+@call_span
 def binned_pileup_bed(path: str, chromosome_sizes: dict,
                       bin_size: int = 1000, mesh=None, device=None):
     """Whole-genome BINNED coverage track from a BED(.gz) file on one
@@ -1698,7 +1716,7 @@ def binned_pileup_bed(path: str, chromosome_sizes: dict,
         path, chromosome_sizes, bin_size)
     n_iv = len(rebased)
     if mesh is None:
-        with stage("H2D", n_bytes=8 * n_iv):
+        with stage("H2D", n_bytes=8 * n_iv, device=device.type == "cuda"):
             starts = torch.from_numpy(rebased.astype(np.int32)).to(device)
             stops = torch.from_numpy(rebased_stop.astype(np.int32)).to(device)
             valid = torch.ones(n_iv, dtype=torch.bool, device=device)
@@ -1719,9 +1737,9 @@ def binned_pileup_bed(path: str, chromosome_sizes: dict,
             stops[d, :m] = rebased_stop[part]
             valid[d, :m] = True
         with stage("H2D", n_bytes=starts.nbytes + stops.nbytes
-                   + valid.nbytes):
+                   + valid.nbytes, device=mesh.lead.type == "cuda"):
             shards = [put_sharded(mesh, a) for a in (starts, stops, valid)]
-        with stage("mesh-step"):
+        with stage("mesh-step", device=mesh.lead.type == "cuda"):
             bins = sharded_binned_pileup_step(mesh, n_bins, bin_size)(
                 *shards)
             if mesh.lead.type == "cuda":

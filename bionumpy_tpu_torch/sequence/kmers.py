@@ -9,7 +9,9 @@ JAX package.  Hash values are the reference's int64 polynomial hashes
 sum(code_i * 4^i).
 
 The public functions take `device`: None is the card, which must be
-present; "cpu" runs the kernels' plain versions on the host.
+present; "cpu" runs the kernels' plain versions on the host.  They are
+call spans (instrument.call_span), and fetch through
+ops/device.fetch_rows.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from ..encodings import DNAEncoding
 from ..encodings.alphabet_encoding import AlphabetEncoding
 from ..encodings.exceptions import EncodingError
 from ..encodings.kmer_encodings import KmerEncoding
+from ..instrument import call_span
+from ..ops.device import fetch_rows
 from ..ragged import RaggedShape
 from ..streams import streamable
 from ..util import is_subclass_or_instance
@@ -98,13 +102,15 @@ def _device_dna_kmers(sequence: EncodedRaggedArray, k: int,
     from ..ops.resident import device_seqs
 
     ds = device_seqs(sequence, device)
-    hashes = kmer_window_hashes(ds.words, ds.ends, k, ds.n).cpu().numpy()
+    live = kmer_window_hashes(ds.words, ds.ends, k, ds.n)
+    hashes = fetch_rows(live, rows=live.numel())
     out_lengths = np.maximum(ds.lengths - k + 1, 0)
     return EncodedRaggedArray(
         EncodedArray(hashes, KmerEncoding(sequence.encoding, k)),
         RaggedShape(out_lengths))
 
 
+@call_span
 def get_kmers(sequence, k: int, device=None) -> EncodedRaggedArray:
     """All k-mer hashes per sequence (reference semantics:
     bionumpy/sequence/kmers.py:36-88).  A row shorter than k gives an
@@ -143,6 +149,7 @@ def get_kmers(sequence, k: int, device=None) -> EncodedRaggedArray:
 
 
 @streamable(sum)
+@call_span
 def count_kmers(sequence, k: int, axis=None, device=None) -> EncodedCounts:
     """Count occurrences of each k-mer (reference:
     bionumpy/sequence/kmers.py:130-145).
@@ -186,8 +193,8 @@ def _device_count_kmers(sequence, k: int, device=None) -> EncodedCounts:
 
     sequence = _as_ragged(sequence)
     ds = device_seqs(sequence, device)
-    counts = kmer_count_small_packed(ds.words, ds.ends, k, 4 ** k,
-                                     ds.n).cpu().numpy()
+    counts = fetch_rows(kmer_count_small_packed(ds.words, ds.ends, k,
+                                                4 ** k, ds.n), rows=4 ** k)
     encoding = KmerEncoding(sequence.encoding, k)
     # the JAX package lists range(4**k) for k > 8; a range holds the same
     # labels without 4^k Python ints (16.7 M at k = 12) and compares, adds

@@ -9,8 +9,11 @@ and device, shared with the k-mer and motif calls); other alphabets take
 the host rollable, as in the JAX package.  The public functions take
 `device`: None is the card, which must be present; "cpu" runs the plain
 versions on the host.  Tables are fetched as live rows in one copy (the
-JAX package ships them in its 32-bit delta pack); hashes, counts and GC
-bins are equal to its results, dtypes included.
+JAX package ships them in its 32-bit delta pack) through
+ops/device.fetch_rows; hashes, counts and GC bins are equal to its
+results, dtypes included.  The public functions are call spans
+(instrument.call_span); each wait for a table's meta is a `D2H-meta`
+span, and each doubling of the cap counts as `cap-rerun`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from ..encoded_array import (EncodedArray, EncodedRaggedArray,
                              as_encoded_array)
 from ..encodings.alphabet_encoding import AlphabetEncoding
 from ..encodings.kmer_encodings import KmerEncoding
+from ..instrument import add, call_span, stage
+from ..ops.device import fetch_rows
 from ..ragged import RaggedShape
 from ..util import is_subclass_or_instance
 from .count_encoded import SparseEncodedCounts
@@ -66,6 +71,7 @@ def _as_ragged(sequence) -> EncodedRaggedArray:
     return sequence
 
 
+@call_span
 def get_minimizers(sequence, k: int, window_size: int,
                    device=None) -> EncodedRaggedArray:
     """Minimum k-mer hash in every window of `window_size` bases.
@@ -103,18 +109,15 @@ def _device_minimizers(sequence: EncodedRaggedArray, k: int,
     mins = minimizer_keys_packed(ds.words, ds.ends, k, window_size - k + 1,
                                  ds.n)
     valid = window_valid(ds.ends, ds.n_positions, window_size, ds.n)
-    hashes = mins[valid].cpu().numpy()
+    live = mins[valid]
+    hashes = fetch_rows(live, rows=live.numel())
     out_lengths = np.maximum(ds.lengths - window_size + 1, 0)
     return EncodedRaggedArray(
         EncodedArray(hashes, KmerEncoding(sequence.encoding, k)),
         RaggedShape(out_lengths))
 
 
-def _live_rows(*parts: torch.Tensor) -> np.ndarray:
-    """The given device tensors as one int64 host array, in one copy."""
-    return torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
-
-
+@call_span
 def count_minimizers(sequence, k: int, window_size: int,
                      cap: int = 1 << 20, device=None) -> SparseEncodedCounts:
     """Count occurrences of each minimizer (one per window): the device-
@@ -141,17 +144,20 @@ def count_minimizers(sequence, k: int, window_size: int,
         uniq, run_starts, meta = minimizer_table_packed(
             ds.words, ds.ends, ds.n, k, window_size - k + 1,
             min(cap, ds.n_positions))
-        n_uni = int(meta[0])
+        with stage("D2H-meta", device=meta.is_cuda):
+            n_uni = int(meta[0])
         if n_uni <= cap or cap >= ds.n_positions:
             break
+        add("cap-rerun", 0.0)
         cap *= 2
     counts = counts_from_runs(run_starts, meta[0], meta[1],
                               run_starts.numel())
-    rows = _live_rows(uniq[:n_uni], counts[:n_uni])
+    rows = fetch_rows(uniq[:n_uni], counts[:n_uni], rows=n_uni)
     return SparseEncodedCounts(KmerEncoding(sequence.encoding, k),
                                rows[:n_uni].view(np.uint64), rows[n_uni:])
 
 
+@call_span
 def count_minimizers_with_gc(sequence, k: int, window_size: int,
                              cap: int = 1 << 20, bin_size: int = 1000,
                              n_chunks: int = 1, chunk_cap: int = None,
@@ -181,12 +187,14 @@ def count_minimizers_with_gc(sequence, k: int, window_size: int,
         uniq, counts, meta, gc = minimizer_gc_job_packed(
             ds.words, ds.ends, ds.n, k, window_size - k + 1,
             min(cap, ds.n_positions), bin_size)
-        n_uni = int(meta[0])
+        with stage("D2H-meta", device=meta.is_cuda):
+            n_uni = int(meta[0])
         if n_uni <= cap or cap >= ds.n_positions:
             break
+        add("cap-rerun", 0.0)
         cap *= 2
-    rows = _live_rows(uniq[:n_uni], counts[:n_uni],
-                      gc[: -(-ds.n // bin_size)])
+    rows = fetch_rows(uniq[:n_uni], counts[:n_uni],
+                      gc[: -(-ds.n // bin_size)], rows=n_uni)
     return (SparseEncodedCounts(KmerEncoding(sequence.encoding, k),
                                 rows[:n_uni].view(np.uint64),
                                 rows[n_uni: 2 * n_uni]),
@@ -241,16 +249,19 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
 
     acc_keys, acc_cnt, acc_nu = _fold_program_impl(
         _make_acc(cap, tables[0][0].device), tables, cap)
-    probe = _live_rows(*metas, acc_nu.reshape(1))
+    with stage("D2H-meta", device=acc_nu.is_cuda):
+        probe = torch.cat([m.to(torch.int64) for m in
+                           (*metas, acc_nu.reshape(1))]).cpu().numpy()
     max_unique, nu = int(probe[:-1:2].max()), int(probe[-1])
     if max_unique > chunk_cap:
         # a chunk's table was truncated: one rerun at a cap that fits
+        add("cap-rerun", 0.0)
         return _count_minimizers_with_gc_chunked(
             sequence, k, window_size, cap, bin_size, n_chunks,
             1 << (max_unique - 1).bit_length(), device)
     if nu >= cap:
         raise ValueError(f"distinct minimizers >= cap={cap}; raise cap")
-    rows = _live_rows(acc_keys[:nu], acc_cnt[:nu], *gcs)
+    rows = fetch_rows(acc_keys[:nu], acc_cnt[:nu], *gcs, rows=nu)
     # stitch the global-grid chunk bins (a bin cut by a boundary adds up)
     n_real = -(-total // bin_size)
     per = [int(g.numel()) for g in gcs]
