@@ -1,5 +1,6 @@
 """bionumpy_tpu_torch.instrument: nesting and self time, call ids across
-threads, counts on spans, the cap-rerun counter, the no-op switch, the
+threads, counts on spans, the cap-rerun counter, the fetch counters
+(fetch-pinned, fetch-host-alloc), the no-op switch, the
 profiler's ranges, the bounded span log, lazy device time, and the one
 fetch helper against the three fetches it replaced.  CPU only, no JAX;
 the `cuda` test skips without a card:
@@ -23,7 +24,7 @@ import bionumpy_tpu_torch as bt
 from bionumpy_tpu_torch import instrument
 from bionumpy_tpu_torch import pipeline as tpipe
 from bionumpy_tpu_torch.ops import kmers as tkmers
-from bionumpy_tpu_torch.ops.device import fetch_rows
+from bionumpy_tpu_torch.ops.device import PINNED_MIN_BYTES, fetch_rows
 
 
 @pytest.fixture(autouse=True)
@@ -174,6 +175,8 @@ def test_count_kmers_fetches_its_rows():
     assert rep["D2H"]["rows"] == n and rep["D2H"]["bytes"] == 16 * n
     assert rep["sort"]["rows"] == 1 << 16  # the bucket: padding too
     assert "cap-rerun" not in rep
+    # a CPU fetch is pageable: the fetch counters stay at zero
+    assert "fetch-pinned" not in rep and "fetch-host-alloc" not in rep
     assert rep["count_kmers"]["call"] is True
     assert rep["upload"]["calls"] == 1
     assert rep["pack"]["bytes"] == rep["H2D"]["bytes"] > 0
@@ -424,3 +427,30 @@ def test_device_seconds_resolve_without_a_synchronise(cuda, monkeypatch):
     for name in ("H2D", "sort", "D2H", "D2H-meta"):
         assert rep[name]["device_seconds"] > 0, name
     del y
+
+
+@pytest.mark.cuda
+def test_fetch_counters_on_the_card(cuda):
+    seqs = reads(n_rows=4000)
+    first = bt.count_kmers(seqs, 31, device=cuda)
+    n_bytes = 16 * len(first.label_codes)
+    assert n_bytes >= PINNED_MIN_BYTES
+    del first
+    instrument.reset()
+    held = bt.count_kmers(seqs, 31, device=cuda)
+    rep = instrument.report()
+    # the dropped table's block is taken again
+    assert rep["fetch-pinned"]["calls"] == 1
+    assert rep["fetch-pinned"]["bytes"] == n_bytes
+    assert "fetch-host-alloc" not in rep
+    # with that table held, the next fetch needs a block of its own
+    again = bt.count_kmers(seqs, 31, device=cuda)
+    rep = instrument.report()
+    assert rep["fetch-pinned"]["calls"] == 2
+    assert rep.get("fetch-host-alloc", {"calls": 0})["calls"] <= 1
+    assert np.array_equal(held.counts, again.counts)
+    assert by_name(instrument.spans())["fetch-pinned"][0]["parent"] == "D2H"
+    # small tables stay pageable and uncounted
+    instrument.reset()
+    bt.count_kmers(reads(n_rows=40), 31, device=cuda)
+    assert "fetch-pinned" not in instrument.report()
