@@ -17,7 +17,8 @@
 // set its time.  So the row is found once per span of 512 positions, by a
 // warp-wide 32-way search (__ballot_sync over 32 probes a round, ~5
 // rounds), and each lane then walks forward through the row ends as its
-// positions rise, galloping over runs of empty or one-base rows.  Lane l
+// positions rise, galloping over runs of empty or one-base rows (both in
+// packed_span.cuh, which kernel 3's match mode shares).  Lane l
 // takes positions 64i + 2l and 64i + 2l + 1 of the span and writes both
 // keys as one evict-first 16-byte store, so every store instruction of a
 // warp writes 512 contiguous bytes; the window words come by shuffle from
@@ -58,6 +59,8 @@ namespace {
 using packed::kSpan;
 using packed::kThreads;
 using packed::kWordBases;
+using packed::first_row_past;
+using packed::row_after;
 
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
 
@@ -70,56 +73,6 @@ __device__ __forceinline__ long long window_key(const packed::Words3& w,
     const uint32_t lo = __funnelshift_r(w.a, w.b, bit) & mlo;
     const uint32_t hi = __funnelshift_r(w.b, w.c, bit) & mhi;
     return (long long)(((unsigned long long)hi << 32) | lo);
-}
-
-// Warp-wide: the first row whose end lies past s, given ends[last] > s.
-// Each round the 32 lanes probe 32 evenly spaced rows of the candidates
-// and the ballot keeps the stretch between the last probe at or before s
-// and the first past it, so 2^18 rows take 4-5 rounds.  Every lane of the
-// warp must call it; all get the same row.
-__device__ int first_row_past(const int32_t* __restrict__ ends, int last,
-                              long long s, int lane) {
-    int lo = 0, hi = last;  // the row lies in [lo, hi]
-    while (lo < hi) {
-        const int step = (hi - lo + 31) >> 5;
-        const long long q = lo + (long long)lane * step;
-        const bool past = q >= hi || (long long)__ldg(ends + q) > s;
-        const unsigned ballot = __ballot_sync(0xffffffffu, past);
-        if (!ballot) {  // every probe at or before s
-            lo += 31 * step + 1;
-            continue;
-        }
-        const int j = __ffs(ballot) - 1;  // the past probes are a suffix
-        if (j == 0) return lo;
-        const int next_lo = lo + (j - 1) * step + 1;
-        hi = min((long long)hi, lo + (long long)j * step);
-        lo = next_lo;
-    }
-    return lo;
-}
-
-// The first row past r whose end lies past p, given ends[r] <= p <
-// ends[last]: one step, then a gallop and a binary search, so a run of
-// empty or one-base rows costs its logarithm.
-__device__ int row_after(const int32_t* __restrict__ ends, int last, int r,
-                         long long p) {
-    int lo = r, hi, step = 1;  // ends[lo] <= p < ends[hi]
-    for (;;) {
-        hi = lo + step;
-        if (hi >= last) {
-            hi = last;
-            break;
-        }
-        if ((long long)__ldg(ends + hi) > p) break;
-        lo = hi;
-        step *= 2;
-    }
-    while (hi - lo > 1) {
-        const int mid = lo + ((hi - lo) >> 1);
-        if ((long long)__ldg(ends + mid) > p) hi = mid;
-        else lo = mid;
-    }
-    return hi;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,7 @@
 // What the kernels over the 2-bit-packed base stream share (kmers.cu,
 // pwm.cu): the span of positions a warp owns, the span's words held one
-// per lane, and the persistent grid that walks the spans.
+// per lane, the walk through the cumulative row ends that finds the row
+// of a position, and the persistent grid that walks the spans.
 //
 // Words are uint32, 16 bases each, base i of a word in bits 2i..2i+1,
 // followed by two halo words, so the window (at most 32 bases) of every
@@ -59,6 +60,56 @@ __device__ __forceinline__ void store_streaming(float* p, float a, float b,
                                                 float c, float d) {
     asm volatile("st.global.cs.v4.f32 [%0], {%1, %2, %3, %4};"
                  :: "l"(p), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+// Warp-wide: the first row whose end lies past s, given ends[last] > s.
+// Each round the 32 lanes probe 32 evenly spaced rows of the candidates
+// and the ballot keeps the stretch between the last probe at or before s
+// and the first past it, so 2^18 rows take 4-5 rounds.  Every lane of the
+// warp must call it; all get the same row.
+__device__ int first_row_past(const int32_t* __restrict__ ends, int last,
+                              long long s, int lane) {
+    int lo = 0, hi = last;  // the row lies in [lo, hi]
+    while (lo < hi) {
+        const int step = (hi - lo + 31) >> 5;
+        const long long q = lo + (long long)lane * step;
+        const bool past = q >= hi || (long long)__ldg(ends + q) > s;
+        const unsigned ballot = __ballot_sync(0xffffffffu, past);
+        if (!ballot) {  // every probe at or before s
+            lo += 31 * step + 1;
+            continue;
+        }
+        const int j = __ffs(ballot) - 1;  // the past probes are a suffix
+        if (j == 0) return lo;
+        const int next_lo = lo + (j - 1) * step + 1;
+        hi = min((long long)hi, lo + (long long)j * step);
+        lo = next_lo;
+    }
+    return lo;
+}
+
+// The first row past r whose end lies past p, given ends[r] <= p <
+// ends[last]: one step, then a gallop and a binary search, so a run of
+// empty or one-base rows costs its logarithm.
+__device__ int row_after(const int32_t* __restrict__ ends, int last, int r,
+                         long long p) {
+    int lo = r, hi, step = 1;  // ends[lo] <= p < ends[hi]
+    for (;;) {
+        hi = lo + step;
+        if (hi >= last) {
+            hi = last;
+            break;
+        }
+        if ((long long)__ldg(ends + hi) > p) break;
+        lo = hi;
+        step *= 2;
+    }
+    while (hi - lo > 1) {
+        const int mid = lo + ((hi - lo) >> 1);
+        if ((long long)__ldg(ends + mid) > p) hi = mid;
+        else lo = mid;
+    }
+    return hi;
 }
 
 // Blocks of kThreads that fill every SM of the device with Kernel (SM

@@ -106,6 +106,13 @@ def _on_card(t: torch.Tensor) -> bool:
     return False
 
 
+def _check_ends(ends: torch.Tensor, words: torch.Tensor) -> None:
+    if ends.dtype != torch.int32 or ends.dim() != 1 or \
+            not ends.is_contiguous() or ends.device != words.device:
+        raise ValueError("ends must be a contiguous 1-D int32 tensor on "
+                         "the words' device")
+
+
 def _check_launch(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -177,10 +184,7 @@ def kmer_keys(words: torch.Tensor, ends: torch.Tensor, k: int,
     `ends`: int32 cumulative row ends, padding rows repeating the last
     end; `n_true`: the real base count (None = every position)."""
     n_positions = _n_positions(words, k)
-    if ends.dtype != torch.int32 or ends.dim() != 1 or \
-            not ends.is_contiguous() or ends.device != words.device:
-        raise ValueError("ends must be a contiguous 1-D int32 tensor on "
-                         "the words' device")
+    _check_ends(ends, words)
     if n_true is None:
         n_true = n_positions
     if not _on_card(words):

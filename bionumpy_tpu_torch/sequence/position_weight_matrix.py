@@ -172,12 +172,14 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
                       cap: int = 1 << 20, device=None) -> RaggedArray:
     """Within-row positions whose motif score (float32) exceeds
     `threshold`, for a 4-letter alphabet: the scores never leave the
-    device, and the match positions are compacted there, block by block
-    of the resident array (ops/pwm.pwm_scan_matches), so the copy to the
-    host holds the matches only.  A block with more than `cap` matches
-    is compacted again at twice the cap until they fit.  An array of
-    more than 2^31 bases is held as resident blocks of whole rows
-    (ops/resident.device_seq_blocks).
+    device, and the match positions are compacted there
+    (ops/pwm.pwm_scan_matches), so the copy to the host holds the
+    matches only.  Windows up to 32 take one launch of kernel 3 in match
+    mode a resident block, and one more at the exact count where a block
+    has more than `cap` matches; wider windows are compacted block by
+    block of 2^27 positions, again at twice the cap until they fit.  An
+    array of more than 2^31 bases is held as resident blocks of whole
+    rows (ops/resident.device_seq_blocks).
 
     Examples
     --------

@@ -363,6 +363,119 @@ def test_pwm_card_tensor_never_takes_the_plain_version(cuda):
         pk.pwm_scores(words.to(cuda), matrix, 11)  # matrix on the host
 
 
+MATCH_WIDTHS = [1, 4, 11, 19, 31, 32]
+MATCH_LAYOUTS = ["short_rows", "row_ends", "long_rows"]
+MATCH_BASE = (5 << 31) + 3  # past 2^31
+
+
+def _match_case(window, layout):
+    """Packed rows for kernel 3's match mode, their int32 ends, the base
+    count, a float32 (4, w) matrix with -inf cells and two thresholds:
+    scores found in the batch, above 99% and 20% of them (below the
+    top score at w = 1, whose scores take four values).  Layouts: rows
+    shorter than the window and empty rows; a row end at every residue
+    mod 512 (so mod 16 and mod 4); rows far longer than a span."""
+    rng = np.random.default_rng(100 * window + MATCH_LAYOUTS.index(layout))
+    if layout == "short_rows":
+        lengths = rng.integers(0, window + 3, 20_000)
+        lengths[::7] = 0
+    elif layout == "row_ends":
+        i = np.arange(1, 1025)
+        lengths = np.diff(700 * i + (7 * i) % 512, prepend=0)
+    else:
+        lengths = rng.integers(0, 40_000, 30)
+    codes = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    words, ends, n = prepare_packed(codes, lengths)
+    matrix = rng.normal(0, 1, (4, window)).astype(np.float32)
+    matrix[rng.integers(0, 4, 2), rng.integers(0, window, 2)] = -np.inf
+    words = torch.from_numpy(words.view(np.int32))
+    matrix = torch.from_numpy(matrix)
+    scores = pk.pwm_scores_plain(words, matrix, window)[:n].numpy()
+    finite = scores[np.isfinite(scores)]
+    below_top = np.unique(finite)[-2]  # so that some score lies above
+    thresholds = [float(min(np.quantile(finite, q, method="lower"),
+                            below_top)) for q in (0.99, 0.2)]
+    return words, torch.from_numpy(ends), n, matrix, thresholds
+
+
+def _match_n_trues(n):
+    """The whole batch, a count not a multiple of 4 or 16, and one that
+    ends inside a row."""
+    return [n, n - 5 if (n - 5) % 4 else n - 6, n // 3 + 1]
+
+
+@pytest.mark.parametrize("layout", MATCH_LAYOUTS)
+@pytest.mark.parametrize("window", MATCH_WIDTHS)
+def test_plain_pwm_matches_equal_the_compaction(window, layout):
+    """pwm_matches on the CPU (its plain version) gives the positions
+    and the count of pwm_match_compact over pwm_scores_plain's scores,
+    plus the base, at a cap above and below the count."""
+    from bionumpy_tpu_torch.ops import pwm as ops_pwm
+    words, ends, n, matrix, thresholds = _match_case(window, layout)
+    scores = pk.pwm_scores_plain(words, matrix, window)
+    for n_true in _match_n_trues(n):
+        for t in thresholds:
+            for cap in (7, 1 << 30):
+                want, want_n = ops_pwm.pwm_match_compact(
+                    scores, ends, n_true, t, window, cap)
+                got, got_n = pk.pwm_matches(words, ends, n_true, matrix,
+                                            window, t, cap, MATCH_BASE)
+                assert int(got_n) == int(want_n) > 0
+                k = min(cap, int(want_n))
+                assert got.numel() == want.numel()
+                assert torch.equal(got[:k], want[:k] + MATCH_BASE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MATCH_LAYOUTS)
+@pytest.mark.parametrize("window", MATCH_WIDTHS)
+def test_pwm_matches_kernel_matches_plain_version_on_card(cuda, window,
+                                                          layout):
+    """Kernel 3's match mode against its plain version: the same count
+    and, once sorted, the same positions, for each n_true and
+    threshold; one launch each."""
+    words, ends, n, matrix, thresholds = _match_case(window, layout)
+    on_card = words.to(cuda), ends.to(cuda), matrix.to(cuda)
+    before = pk.LAUNCHES["pwm_scores_kernel.match"]
+    launches = 0
+    for n_true in _match_n_trues(n):
+        for t in thresholds:
+            want, want_n = pk.pwm_matches_plain(words, ends, n_true, matrix,
+                                                window, t, 1 << 30,
+                                                MATCH_BASE)
+            got, got_n = pk.pwm_matches(on_card[0], on_card[1], n_true,
+                                        on_card[2], window, t, 1 << 30,
+                                        MATCH_BASE)
+            launches += 1
+            k = int(want_n)
+            assert int(got_n) == k > 0
+            assert torch.equal(torch.sort(got[:k]).values.cpu(), want[:k])
+    assert pk.LAUNCHES["pwm_scores_kernel.match"] == before + launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4, 19])
+def test_pwm_matches_kernel_counts_past_its_cap_on_card(cuda, window):
+    """With a threshold below most scores and a cap of a third of the
+    matches: the count is exact, the cap slots hold distinct matches,
+    and one more launch at the exact count holds them all."""
+    words, ends, n, matrix, thresholds = _match_case(window, "row_ends")
+    want, want_n = pk.pwm_matches_plain(words, ends, n, matrix, window,
+                                        thresholds[1], 1 << 30)
+    k = int(want_n)
+    cap = k // 3
+    args = words.to(cuda), ends.to(cuda), n, matrix.to(cuda), window, \
+        thresholds[1]
+    got, got_n = pk.pwm_matches(*args, cap)
+    assert int(got_n) == k and got.numel() == cap > 0
+    held = got.cpu()
+    assert torch.unique(held).numel() == cap
+    assert torch.isin(held, want[:k]).all()
+    got, got_n = pk.pwm_matches(*args, k)
+    assert int(got_n) == k
+    assert torch.equal(torch.sort(got).values.cpu(), want[:k])
+
+
 def _reads(seed, n_reads=300, max_len=250):
     """Seeded reads of 0..max_len bases as strings."""
     rng = np.random.default_rng(seed)
@@ -502,7 +615,8 @@ def test_count_minimizers_fastq_on_card_matches_cpu(cuda, tmp_path):
 def test_motif_scans_on_card_match_cpu(cuda, w):
     """get_motif_scores (over 2^15 bases, so on the device) and
     get_motif_matches on the card equal their device="cpu" results, bit
-    for bit; windows up to 32 launch the pwm_scores kernel."""
+    for bit; windows up to 32 launch the pwm_scores kernel, in scores
+    mode for the scores and in match mode for the matches."""
     import bionumpy_tpu_torch as bt
     rng = np.random.default_rng(w)
     counts = rng.integers(0, 31, (4, w))
@@ -518,11 +632,17 @@ def test_motif_scans_on_card_match_cpu(cuda, w):
                                   np.asarray(want.ravel()))
     flat = np.asarray(want.ravel())
     threshold = float(np.percentile(flat[np.isfinite(flat)], 99))
+    match_before = pk.LAUNCHES["pwm_scores_kernel.match"]
     got = bt.get_motif_matches(seqs, pwm, threshold, cap=64, device=cuda)
     want = bt.get_motif_matches(seqs, pwm, threshold, cap=64, device="cpu")
     np.testing.assert_array_equal(got.lengths, want.lengths)
     np.testing.assert_array_equal(got.ravel(), want.ravel())
-    assert pk.LAUNCHES["pwm_scores_kernel"] == before + (2 if w <= 32 else 0)
+    # windows up to 32: one scores-mode launch for the scores, one
+    # match-mode launch for the matches and one more past the cap
+    fused = w <= 32
+    assert pk.LAUNCHES["pwm_scores_kernel"] == before + fused
+    assert pk.LAUNCHES["pwm_scores_kernel.match"] == match_before + (
+        fused * (1 + (int(want.lengths.sum()) > 64)))
 
 
 def _to(dev, *tensors):

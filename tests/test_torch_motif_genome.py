@@ -5,17 +5,21 @@
   for widths 1, 11, 19 and 32, whole and through the blocked path (the
   resident blocks of whole rows and the scan blocks forced small), with
   matches at row starts and ends and rows shorter than the window;
-- the cap doubling inside a block, the spans a scan opens, the refusal
-  of arrays whose int32 row ends would wrap;
+- windows up to 32 in one match-mode launch of kernel 3 a resident
+  block, with one wait for its count and one rerun at the exact count
+  past the cap; wider windows through the blocked scan of the codes,
+  with its cap doubling inside a block;
+- the spans a scan opens, the refusal of arrays whose int32 row ends
+  would wrap;
 - the threshold against a count over every window at w <= 8;
 - controls that must read not correct: the minus strand dropped, the
-  threshold one float32 ulp higher, a block's last window lost, the
-  reference computed in float16;
+  threshold one float32 ulp higher, the last window of every row lost,
+  the reference computed in float16;
 - the benchmark cell itself at a small genome, and its two readers.
 
 Scores are float32 sums in the same order in the port and the
 reference, so every comparison is exact.  This file imports neither JAX
-nor the JAX package; its `cuda` test runs the blocked scan on the card:
+nor the JAX package; its `cuda` tests run the scans on the card:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_motif_genome.py
@@ -33,7 +37,8 @@ import torch
 
 import bionumpy_tpu_torch as bt
 from bionumpy_tpu_torch import instrument
-from bionumpy_tpu_torch.ops import kmers, pwm as ops_pwm, resident
+from bionumpy_tpu_torch.ops import (kmers, pwm as ops_pwm, pwm_kernels,
+                                     resident)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -45,6 +50,7 @@ from portbench.harness import run_cell  # noqa: E402
 from portbench.registry import HERE, Registry  # noqa: E402
 
 CELL = "motif19-hg38-genome"
+WIDE = 40  # past the kernel's 32: the blocked scan of the codes
 # p-values that leave tens to hundreds of matches a strand at each width
 P_VALUE = {1: 0.3, 11: 1e-2, 19: 1e-3, 32: 1e-3}
 
@@ -145,8 +151,9 @@ def test_both_strands_equal_reference(request, layout, w):
 
 
 def test_blocked_scan_equals_whole_scan(monkeypatch):
-    pwms, matrices = _motif(19, 5)
-    flat, lengths = _genome(19, 6)
+    # a window past the kernel's 32 takes the blocked codes path
+    pwms, matrices = _motif(WIDE, 5)
+    flat, lengths = _genome(WIDE, 6)
     threshold = M.threshold(matrices[0], 1e-2)
     whole = _port_keys(_seqs(flat, lengths), pwms, threshold)
     monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 5000)
@@ -157,8 +164,8 @@ def test_blocked_scan_equals_whole_scan(monkeypatch):
 
 
 def test_cap_doubles_inside_a_block(blocked):
-    pwms, matrices = _motif(11, 3)
-    flat, lengths = _genome(11, 4)
+    pwms, matrices = _motif(WIDE, 3)
+    flat, lengths = _genome(WIDE, 4)
     threshold = M.threshold(matrices[0], 0.3)
     instrument.reset()
     got = _port_keys(_seqs(flat, lengths), pwms, threshold, cap=1)
@@ -185,6 +192,42 @@ def test_spans_of_a_scan():
     assert rep["D2H"]["rows"] == n_matches
     assert rep["D2H"]["bytes"] == 8 * n_matches
     assert "upload" not in rep  # resident since the first call
+    # one match-mode launch and one wait for its count: one block
+    assert rep["pwm-fused"]["calls"] == rep["D2H-meta"]["calls"] == 1
+    assert rep["pwm-fused"]["rows"] == rep["pwm-scan"]["rows"]
+    assert "cap-rerun" not in rep
+
+
+@pytest.mark.parametrize("cap", [1, 1 << 20])
+def test_fused_scan_launches_once_a_block(blocked, cap):
+    """Over resident blocks, each takes one match-mode launch and one
+    wait for its count; a block with more than `cap` matches takes one
+    more launch at the exact count, and the cap carries on."""
+    pwms, matrices = _motif(19, 15)
+    flat, lengths = _genome(19, 16)
+    threshold = M.threshold(matrices[0], 1e-2)
+    seqs = _seqs(flat, lengths)
+    n_blocks = len(resident.device_seq_blocks(seqs, "cpu"))
+    assert n_blocks > 1
+    instrument.reset()
+    got = _port_keys(seqs, pwms, threshold, cap=cap)
+    rep = instrument.report()
+    want = _ref_keys(flat, lengths, matrices, threshold)
+    np.testing.assert_array_equal(got, want.numpy())
+    reruns = rep.get("cap-rerun", {}).get("calls", 0)
+    assert rep["D2H-meta"]["calls"] == 2 * n_blocks  # both strands
+    assert rep["pwm-fused"]["calls"] == 2 * n_blocks + reruns
+    assert rep["pwm-scan"]["calls"] == rep["pwm-fused"]["calls"]
+    assert rep["pwm-scan"]["rows"] == rep["pwm-fused"]["rows"]
+    assert rep["pwm-compact"]["rows"] == len(got)
+    if cap == 1:
+        assert 1 <= reruns < 2 * n_blocks  # the larger cap carries on
+    else:
+        assert reruns == 0
+        # each block scored to its last base rounded up to a word
+        per_strand = sum(-(-int(b.n) // 16) * 16 for b in
+                         resident.device_seq_blocks(seqs, "cpu"))
+        assert rep["pwm-scan"]["rows"] == 2 * per_strand
 
 
 @pytest.mark.parametrize("w", [1, 3, 6, 8])
@@ -233,13 +276,12 @@ def _control(monkeypatch, fault):
         threshold = float(np.nextafter(np.float32(threshold),
                                        np.float32(np.inf)))
     if fault == "last_window":
-        score = ops_pwm.pwm_scores_range
+        # the row-end test one base off: the last window of every row lost
+        valid = pwm_kernels.valid_windows_plain
 
-        def lossy(*args):
-            out = score(*args)
-            out[-1] = -np.inf
-            return out
-        monkeypatch.setattr(ops_pwm, "pwm_scores_range", lossy)
+        def lossy(ends, n, k, n_true, offset=0):
+            return valid(ends, n, k + 1, n_true, offset)
+        monkeypatch.setattr(pwm_kernels, "valid_windows_plain", lossy)
     seqs = _seqs(flat, lengths)
     got = _port_keys(seqs, pwms[:1] if fault == "minus" else pwms,
                      threshold)
@@ -374,3 +416,40 @@ def test_blocked_scan_on_card_equals_reference(cuda, monkeypatch, w):
     np.testing.assert_array_equal(got, want.cpu().numpy())
     assert len(resident.device_seq_blocks(seqs, cuda)) > 1
     assert len(got) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 1 << 20])
+def test_fused_scan_on_card_launches_once_a_block(cuda, monkeypatch, cap):
+    """Resident blocks of at most 2^21 bases over 8.4 M bases at w = 19:
+    one match-mode launch of kernel 3 and one wait for its count a
+    block, one more launch where a block passes the cap, no scores-mode
+    launch; equal to the reference on the card."""
+    monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 1 << 21)
+    pwms, matrices = _motif(19, 61)
+    rng = np.random.default_rng(62)
+    lengths = rng.integers(1, 1_900_000, 8)
+    lengths[5] = 18
+    flat = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    threshold = M.threshold(matrices[0], 1e-4)
+    seqs = _seqs(flat, lengths)
+    n_blocks = len(resident.device_seq_blocks(seqs, cuda))
+    assert n_blocks > 1
+    pwm_kernels.reset_launches()
+    instrument.reset()
+    keys = []
+    for strand, pwm in enumerate(pwms):
+        m = bt.get_motif_matches(seqs, pwm, threshold, cap=cap, device=cuda)
+        rows = np.repeat(np.arange(len(m.lengths)), m.lengths)
+        keys.append((strand << 62) | (rows << 32) | np.asarray(m.ravel()))
+    rep = instrument.report()
+    got = np.concatenate(keys).astype(np.int64)
+    want = _ref_keys(flat, lengths, matrices, threshold, cuda)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    reruns = rep.get("cap-rerun", {}).get("calls", 0)
+    assert pwm_kernels.LAUNCHES["pwm_scores_kernel"] == 0
+    assert pwm_kernels.LAUNCHES["pwm_scores_kernel.match"] == \
+        rep["pwm-fused"]["calls"] == 2 * n_blocks + reruns
+    assert rep["D2H-meta"]["calls"] == 2 * n_blocks
+    assert (reruns >= 1) == (cap == 1)
+    assert len(got) > 500
