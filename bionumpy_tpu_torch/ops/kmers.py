@@ -4,12 +4,16 @@ A window's 2k-bit hash is one int64 key, not the JAX package's two
 uint32 limbs (the TPU has no int64).  Invalid windows carry the sentinel
 2^63-1, above every k <= 31 hash, so a plain sort pushes them past every
 real key.  A batch is counted by: kmer_keys (ops/kmer_kernels.py) ->
-torch.sort -> run detection -> compaction of the run heads to the front
-of a `cap`-row table -> counts from the run-start differences.
+sort and run detection (sort_runs, the one sort of every table of the
+port, merges included) -> compaction of the run heads to the front of a
+`cap`-row table (compact_runs) -> counts from the run-start differences.
 
-Everything here stays asynchronous on the card: no `.item()`, no
-`nonzero`, no shape that depends on the data.  Counts are device
-scalars and int64 tensors until the caller fetches them.
+whole_table owns the size policy of a table that its caller fetches
+whole: it waits once for the table's row count and compacts again from
+the same sort where `cap` was too small.  Everything else here stays
+asynchronous on the card: no `.item()`, no `nonzero`, no shape that
+depends on the data.  Counts are device scalars and int64 tensors until
+the caller fetches them.
 
 The limb functions (kmer_hash_limbs, kmer_hashes_masked, hash_checksum,
 unique_kmer_stats) keep the JAX package's (lo, hi) outputs, as int64
@@ -35,7 +39,9 @@ MAX_PACKED_BASES = (1 << 31) - 1
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
            "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
-           "sorted_runs_from_keys", "counts_from_runs", "kmer_sentinel_table_packed",
+           "sort_runs", "compact_runs", "sorted_runs_from_keys",
+           "whole_table", "merge_hash_tables",
+           "counts_from_runs", "kmer_sentinel_table_packed",
            "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
            "sparse_count_tables", "kmer_fullsum_packed",
            "kmer_checksum_streamed", "heads_first", "prepare_codes",
@@ -116,24 +122,82 @@ def heads_first(is_head: torch.Tensor, cap: int) -> torch.Tensor:
     return out[:cap]
 
 
-def sorted_runs_from_keys(keys: torch.Tensor, cap: int):
-    """Sort/compact core: sort the keys, find the runs of equal valid
-    keys, and compact the run starts to the front of a `cap`-row buffer.
-    Returns (uniq_keys, run_starts, n_unique, n_valid); the last two are
-    device scalars and n_unique may exceed cap (the table then holds the
-    first cap runs).  Every table sort of the port runs here, as the
-    `sort` span (its rows: the keys sorted)."""
+def sort_runs(keys: torch.Tensor):
+    """The sort step of every table: sort the keys and mark the runs of
+    equal valid keys.  Returns (sorted keys, the sort's indices, is_start,
+    n_unique, n_valid); the last two are device scalars.  Every table
+    sort of the port runs here, as the `sort` span (its rows: the keys
+    sorted)."""
     n = keys.numel()
     with stage("sort", rows=n, device=keys.is_cuda):
-        s = torch.sort(keys).values
+        s, order = torch.sort(keys)
     n_valid = (s != SENTINEL).sum()
-    is_new = torch.ones(n, dtype=torch.bool, device=keys.device)
-    is_new[1:] = s[1:] != s[:-1]
-    pos = torch.arange(n, device=keys.device)
-    is_start = is_new & (pos < n_valid)
-    n_unique = is_start.sum()
+    is_start = torch.ones(n, dtype=torch.bool, device=keys.device)
+    is_start[1:] = s[1:] != s[:-1]
+    is_start &= torch.arange(n, device=keys.device) < n_valid
+    return s, order, is_start, is_start.sum(), n_valid
+
+
+def compact_runs(s: torch.Tensor, is_start: torch.Tensor, cap: int):
+    """The compaction step: the first `cap` run starts of a sort_runs
+    result, as (their keys, their positions)."""
     run_starts = heads_first(is_start, cap)
-    return s[run_starts], run_starts, n_unique, n_valid
+    return s[run_starts], run_starts
+
+
+def sorted_runs_from_keys(keys: torch.Tensor, cap: int):
+    """Sort/compact core: sort_runs, then compact_runs at `cap`.  Returns
+    (uniq_keys, run_starts, n_unique, n_valid); the last two are device
+    scalars and n_unique may exceed cap (the table then holds the first
+    cap runs, as in the JAX package)."""
+    s, _, is_start, n_unique, n_valid = sort_runs(keys)
+    return (*compact_runs(s, is_start, cap), n_unique, n_valid)
+
+
+def whole_table(keys: torch.Tensor, cap: int):
+    """The whole (keys, counts) table of the keys, for a caller that
+    fetches it: one sort, a compaction at min(cap, n) rows and one wait
+    for n_unique (`D2H-meta`).  A table past that is compacted again from
+    the same sort at the power of two that fits it (`cap-rerun`).
+    Returns (keys, counts) of n_unique rows and the (2,) int64 device
+    meta [n_unique, n_valid]."""
+    s, _, is_start, n_unique, n_valid = sort_runs(keys)
+
+    def compacted(rows):
+        uniq, run_starts = compact_runs(s, is_start, rows)
+        return uniq, counts_from_runs(run_starts, n_unique, n_valid, rows)
+
+    # counts and meta are enqueued before the wait: the card computes
+    # them while the host waits, and a table that fits needs no launch after
+    rows = min(cap, keys.numel())
+    uniq, counts = compacted(rows)
+    meta = torch.stack([n_unique, n_valid])
+    with stage("D2H-meta", device=keys.is_cuda):
+        n = int(n_unique)
+    if n > rows:
+        add("cap-rerun", 0.0)
+        uniq, counts = compacted(min(bucket_size(n, 1), keys.numel()))
+    return uniq[:n], counts[:n], meta
+
+
+def merge_hash_tables(keys: torch.Tensor, cnt: torch.Tensor, cap_out: int):
+    """Merge concatenated (key, count) tables: sum counts of equal keys
+    and compact the unique keys to the front.  Sentinel keys are
+    dropped.  Returns (keys, counts, n_unique) with min(cap_out, n) rows,
+    the unused ones (SENTINEL, 0); n_unique is a device scalar of at most
+    cap_out.  Past cap_out distinct keys the last total is cut, as in the
+    JAX package; at exactly cap_out with sentinels in the input the JAX
+    package cuts it too (its sentinels make a run), the port does not."""
+    cap_out = min(cap_out, keys.numel())
+    s, order, is_start, n_unique, n_valid = sort_runs(keys)
+    m, starts = compact_runs(s, is_start, cap_out)
+    csum = torch.cumsum(cnt[order], 0)
+    ends = starts + counts_from_runs(starts, n_unique, n_valid, cap_out)
+    before = torch.where(starts > 0, csum[torch.clamp(starts - 1, min=0)], 0)
+    totals = csum[torch.clamp(ends - 1, min=0)] - before
+    live = torch.arange(cap_out, device=keys.device) < n_unique
+    return (torch.where(live, m, SENTINEL), torch.where(live, totals, 0),
+            torch.clamp(n_unique, max=cap_out))
 
 
 def kmer_sorted_runs_packed(words: torch.Tensor, ends: torch.Tensor,
@@ -210,25 +274,12 @@ def kmer_window_hashes(words: torch.Tensor, ends: torch.Tensor, k: int,
 def sparse_count_tables(words: torch.Tensor, ends: torch.Tensor, k: int,
                         n_true: int, cap: int = 1 << 20):
     """Sorted (hashes uint64, counts int64) host table of one packed chunk:
-    the device sort + compaction, then a fetch of the first n_unique rows
-    only.  A chunk with more than `cap` distinct k-mers is sorted and
-    compacted again at a cap that fits (the JAX package's doubling loop;
-    each rerun counts as `cap-rerun`)."""
-    n_positions = (words.numel() - 2) * WORD_BASES
-    keys = kmer_keys(words, ends, k, n_true)
-    while True:
-        uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
-            keys, min(cap, n_positions))
-        with stage("D2H-meta", device=keys.is_cuda):
-            n_uni = int(n_unique)
-        if n_uni <= cap or cap >= n_positions:
-            break
-        add("cap-rerun", 0.0)
-        cap = max(cap * 2, 1 << max(n_uni - 1, 1).bit_length())
-    counts = counts_from_runs(run_starts, n_unique, n_valid,
-                              run_starts.numel())
-    rows = fetch_rows(uniq[:n_uni], counts[:n_uni], rows=n_uni)
-    return rows[:n_uni].view(np.uint64), rows[n_uni:]
+    the chunk's whole_table (first compacted at `cap` rows), then a fetch
+    of its n_unique rows only."""
+    uniq, counts, _ = whole_table(kmer_keys(words, ends, k, n_true), cap)
+    n = uniq.numel()
+    rows = fetch_rows(uniq, counts, rows=n)
+    return rows[:n].view(np.uint64), rows[n:]
 
 
 def kmer_fullsum_packed(words: torch.Tensor, k: int) -> torch.Tensor:
@@ -323,12 +374,7 @@ def unique_kmer_stats(lo: torch.Tensor, hi: torch.Tensor,
     sentinel.)"""
     keys = (lo.to(torch.int64) & _M32) | ((hi.to(torch.int64) & _M32) << 32)
     keys = torch.where(valid, keys, SENTINEL)
-    s = torch.sort(keys.reshape(-1)).values
-    n_valid = valid.sum()
-    is_new = torch.ones_like(s, dtype=torch.bool)
-    is_new[1:] = s[1:] != s[:-1]
-    pos = torch.arange(s.numel(), device=s.device)
-    return (is_new & (pos < n_valid)).sum(), n_valid
+    return sort_runs(keys.reshape(-1))[3:]
 
 
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -336,7 +382,7 @@ def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     so the rows are zero-padded to a power of two and folded in halves,
     log2(n) steps on the tensor's device."""
     n = x.shape[1]
-    size = 1 << max(n - 1, 0).bit_length()
+    size = bucket_size(n, 1)
     buf = torch.zeros(x.shape[0], size, dtype=x.dtype, device=x.device)
     buf[:, :n] = x
     while size > 1:

@@ -19,19 +19,22 @@ windows (window_valid) before using them.
 
 Tables are fetched as live rows in one copy, as pipeline._fetch_acc
 fetches them; the JAX package's 32-bit delta pack (ops/fetch_pack.py)
-has no counterpart.  Nothing here waits for the device.
+has no counterpart.  Nothing here waits for the device but
+minimizer_gc_job_packed, which waits once for its table's row count.
 """
 from __future__ import annotations
 
 import torch
 
 from .kmer_kernels import SENTINEL, WORD_BASES, kmer_keys
-from .kmers import counts_from_runs, kmer_hash_limbs, sorted_runs_from_keys
+from .kmers import (counts_from_runs, kmer_hash_limbs, sorted_runs_from_keys,
+                    whole_table)
 from .tracks import gc_binned_from_packed, gc_binned_phase
 
-__all__ = ["window_valid", "minimizer_keys_packed", "minimizer_table_packed",
-           "minimizer_sentinel_table_packed", "minimizer_gc_job_packed",
-           "minimizer_sentinel_gc_group", "minimizer_limbs"]
+__all__ = ["window_valid", "minimizer_keys_packed", "minimizer_keys_masked",
+           "minimizer_table_packed", "minimizer_sentinel_table_packed",
+           "minimizer_gc_job_packed", "minimizer_sentinel_gc_group",
+           "minimizer_limbs"]
 
 
 def _doubling_min(keys: torch.Tensor, n_kmers: int) -> torch.Tensor:
@@ -81,6 +84,18 @@ def minimizer_keys_packed(words: torch.Tensor, ends: torch.Tensor, k: int,
     return _doubling_min(kmer_keys(words, ends, k, n_true), n_kmers)
 
 
+def minimizer_keys_masked(words: torch.Tensor, ends: torch.Tensor, n_true,
+                          k: int, n_kmers: int) -> torch.Tensor:
+    """minimizer_keys_packed with the sentinel at every window of
+    n_kmers + k - 1 bases that leaves its row or starts at or past
+    min(ends[-1], n_true): the keys a minimizer table counts."""
+    n_positions = (words.numel() - 2) * WORD_BASES
+    mins = minimizer_keys_packed(words, ends, k, n_kmers, n_true)
+    return mins.masked_fill_(~window_valid(ends, n_positions,
+                                           n_kmers + k - 1, n_true),
+                             SENTINEL)
+
+
 def minimizer_table_packed(words: torch.Tensor, ends: torch.Tensor, n_true,
                            k: int, n_kmers: int, cap: int):
     """Sorted, compacted minimizer table of a packed batch: one entry per
@@ -90,11 +105,9 @@ def minimizer_table_packed(words: torch.Tensor, ends: torch.Tensor, n_true,
     min(cap, n_positions) rows; n_unique may exceed cap (the table then
     holds the first cap runs)."""
     n_positions = (words.numel() - 2) * WORD_BASES
-    mins = minimizer_keys_packed(words, ends, k, n_kmers, n_true)
-    mins.masked_fill_(~window_valid(ends, n_positions, n_kmers + k - 1,
-                                    n_true), SENTINEL)
     uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
-        mins, min(cap, n_positions))
+        minimizer_keys_masked(words, ends, n_true, k, n_kmers),
+        min(cap, n_positions))
     return uniq, run_starts, torch.stack([n_unique, n_valid])
 
 
@@ -113,15 +126,17 @@ def minimizer_sentinel_table_packed(words: torch.Tensor, ends: torch.Tensor,
 
 def minimizer_gc_job_packed(words: torch.Tensor, ends: torch.Tensor, n_true,
                             k: int, n_kmers: int, cap: int, bin_size: int):
-    """The whole config-3 job on one upload: the minimizer table (uniq
-    keys, counts, meta) and the int32 GC count per bin of the padded
-    bucket (ops/tracks.gc_binned_from_packed).  The caller fetches the
-    meta, then the live rows and the real bins in one copy."""
-    uniq, run_starts, meta = minimizer_table_packed(words, ends, n_true, k,
-                                                    n_kmers, cap)
-    counts = counts_from_runs(run_starts, meta[0], meta[1],
-                              run_starts.numel())
-    return uniq, counts, meta, gc_binned_from_packed(words, n_true, bin_size)
+    """The whole config-3 job on one upload: the int32 GC count per bin of
+    the padded bucket (ops/tracks.gc_binned_from_packed) and the whole
+    minimizer table (ops/kmers.whole_table, first compacted at `cap`
+    rows).  Returns (uniq keys, counts, meta (2,) int64 [n_unique,
+    n_valid], bins), the table's n_unique rows long, for the caller to
+    fetch with the real bins in one copy.  (The JAX package's returns
+    the table at `cap` rows, and its caller reruns past it.)"""
+    gc = gc_binned_from_packed(words, n_true, bin_size)
+    uniq, counts, meta = whole_table(
+        minimizer_keys_masked(words, ends, n_true, k, n_kmers), cap)
+    return uniq, counts, meta, gc
 
 
 def minimizer_sentinel_gc_group(words: torch.Tensor, ends: torch.Tensor,

@@ -9,13 +9,13 @@ mask and compacts the matches itself, so neither scores nor masks are
 written (`pwm-scan`, rows: positions scored; the `pwm-fused` counter),
 then one wait for the match count (`D2H-meta`) and a sort of the
 matches (`pwm-compact`, rows: matches).  Wider windows are scored from
-the codes SCAN_POSITIONS positions at a time and masked and compacted
-by torch ops (pwm_match_compact), which wait for nothing: the match
-count is a device scalar until the caller fetches it.  The two routes
-give the same positions, bit for bit, since both score in the same
-float32 order.  On hg38 (3.09 G bases, two resident blocks) the match
-mode takes ~8 ms of device time a strand where the blocked route took
-~380 ms (NVIDIA H100 80GB HBM3 at 700 W).
+the codes SCAN_POSITIONS positions at a time and masked by torch ops,
+and each block's matches are compacted at their count, after one wait
+for it (`D2H-meta`).  The two routes give the same positions, bit for
+bit, since both score in the same float32 order.  On hg38 (3.09 G
+bases, two resident blocks) the match mode takes ~8 ms of device time a
+strand where the blocked route took ~380 ms (NVIDIA H100 80GB HBM3 at
+700 W).
 
 pwm_scores and pwm_best_scores take codes instead, for alphabets that
 are not 4 letters (and windows past the kernel's 32); they are XLA code
@@ -89,6 +89,17 @@ def pwm_scores_range(words: torch.Tensor, matrix: torch.Tensor,
     return pwm_scores(codes, matrix, window_size)[: hi - lo]
 
 
+def _match_mask(scores: torch.Tensor, ends: torch.Tensor, n_true,
+                threshold: float, window_size: int, offset: int):
+    """True where a score of positions offset .. offset + n - 1 exceeds
+    `threshold` and its window stays inside its row, below
+    min(ends[-1], n_true)."""
+    valid = valid_windows_plain(ends, scores.numel(), window_size,
+                                int(n_true), offset)
+    # a float32 threshold, as the JAX package compares in float32
+    return valid & (scores > float(np.float32(threshold)))
+
+
 def pwm_match_compact(scores: torch.Tensor, ends: torch.Tensor, n_true,
                       threshold: float, window_size: int, cap: int,
                       offset: int = 0):
@@ -99,11 +110,8 @@ def pwm_match_compact(scores: torch.Tensor, ends: torch.Tensor, n_true,
     (valid_windows_plain); the positions returned count from `offset`.
     Returns (positions int64, n_matches int64 device scalar); n_matches
     may exceed cap, and the buffer then holds the first cap matches."""
-    n = scores.numel()
-    valid = valid_windows_plain(ends, n, window_size, int(n_true), offset)
-    # a float32 threshold, as the JAX package compares in float32
-    hit = valid & (scores > float(np.float32(threshold)))
-    return heads_first(hit, min(cap, n)), hit.sum()
+    hit = _match_mask(scores, ends, n_true, threshold, window_size, offset)
+    return heads_first(hit, min(cap, scores.numel())), hit.sum()
 
 
 def pwm_scan_matches(words: torch.Tensor, ends: torch.Tensor,
@@ -157,11 +165,10 @@ def _fused_scan(words, ends, n_true, matrix, window_size, threshold, cap,
 
 def _blocked_scan(words, ends, lengths, n_true, matrix, window_size,
                   threshold, cap, base):
-    """SCAN_POSITIONS positions at a time: each block is scored, masked
-    against the rows that reach it and compacted, and its match count
-    waited for (`D2H-meta`); a block with more than `cap` matches is
-    compacted again at twice the cap until they fit, and the larger cap
-    carries on."""
+    """SCAN_POSITIONS positions at a time: each block is scored and
+    masked against the rows that reach it, its match count waited for
+    (`D2H-meta`), and its matches compacted at that count, so `cap`
+    bounds nothing here and is returned as given."""
     on_card = words.is_cuda
     row_ends = np.cumsum(lengths, dtype=np.int64)
     n_scan = -(-n_true // WORD_BASES) * WORD_BASES
@@ -175,16 +182,11 @@ def _blocked_scan(words, ends, lengths, n_true, matrix, window_size,
         r0 = int(np.searchsorted(row_ends, lo, side="right"))
         r1 = int(np.searchsorted(row_ends, hi + window_size - 1)) + 1
         with stage("pwm-compact", device=on_card) as span:
-            while True:
-                positions, n_matches = pwm_match_compact(
-                    scores, ends[r0:r1], n_true, threshold, window_size,
-                    cap, lo)
-                with stage("D2H-meta", device=on_card):
-                    n = int(n_matches)
-                if n <= cap or cap >= hi - lo:
-                    break
-                cap *= 2
+            hit = _match_mask(scores, ends[r0:r1], n_true, threshold,
+                              window_size, lo)
+            with stage("D2H-meta", device=on_card):
+                n = int(hit.sum())
             span.rows = n
-        if n:
-            parts.append(positions[:n] + (base + lo))
+            if n:
+                parts.append(heads_first(hit, n) + (base + lo))
     return parts, cap

@@ -4,9 +4,9 @@ bionumpy_tpu/parallel/sparse_parallel.py).
 Each shard compacts its packed reads to a sentinel-padded (key, count)
 table on its own device (kernel 1 through ops/kmers or ops/minimizers),
 the tables are gathered to the lead device and merged there with
-merge_hash_tables: one sort of the concatenated keys with the counts as
-payload, run detection, and per-run totals from a cumulative-sum
-difference.  This is the device twin of SparseEncodedCounts.__add__, the
+ops/kmers.merge_hash_tables: one sort of the concatenated keys with the
+counts as payload, run detection, and per-run totals from a
+cumulative-sum difference.  This is the device twin of SparseEncodedCounts.__add__, the
 associative fold the reference applies per chunk (reference:
 bionumpy/streams/reductions.py:6-23), lifted to the mesh axis.
 
@@ -21,43 +21,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.kmers import (SENTINEL, WORD_BASES, heads_first,
-                         kmer_sentinel_table_packed)
+from ..ops.kmers import (WORD_BASES, kmer_sentinel_table_packed,
+                         merge_hash_tables)
 from ..ops.minimizers import minimizer_sentinel_table_packed
-from ..ops.pwm import pwm_match_compact, pwm_scores_packed
+from ..ops.pwm_kernels import pwm_matches
 from .mesh import Mesh, all_gather, pmax, psum
 
 __all__ = ["merge_hash_tables", "sharded_sparse_count_step",
            "sharded_sparse_count_fold_step",
            "sharded_minimizer_count_fold_step", "sharded_pwm_match_step",
            "shard_packed_reads", "host_merge_check"]
-
-
-def merge_hash_tables(keys: torch.Tensor, cnt: torch.Tensor, cap_out: int):
-    """Merge concatenated (key, count) tables: sum counts of equal keys
-    and compact the unique keys to the front.  Sentinel keys are
-    dropped.  Returns (keys, counts, n_unique) with min(cap_out, n) rows;
-    n_unique is a device scalar."""
-    n = keys.numel()
-    cap_out = min(cap_out, n)
-    s, order = torch.sort(keys)
-    c_s = cnt[order]
-    is_new = torch.ones(n, dtype=torch.bool, device=keys.device)
-    is_new[1:] = s[1:] != s[:-1]
-    n_runs = is_new.sum()
-    starts = heads_first(is_new, cap_out)
-    csum = torch.cumsum(c_s, 0)
-    iota = torch.arange(cap_out, device=keys.device)
-    nxt = torch.cat([starts[1:], starts.new_zeros(1)])
-    ends = torch.where(iota < n_runs - 1, nxt, n)
-    before = torch.where(starts > 0, csum[torch.clamp(starts - 1, min=0)],
-                         torch.zeros_like(starts))
-    totals = csum[torch.clamp(ends - 1, min=0)] - before
-    m = s[starts]
-    real = (iota < n_runs) & (m != SENTINEL)
-    totals = torch.where(real, totals, torch.zeros_like(totals))
-    m = torch.where(real, m, SENTINEL)
-    return m, totals, real.sum()
 
 
 def _local_table(words, ends, n_true, k: int, cap: int):
@@ -151,19 +124,18 @@ def sharded_minimizer_count_fold_step(mesh: Mesh, k: int, window_size: int,
 def sharded_pwm_match_step(mesh: Mesh, window_size: int, cap: int):
     """Multi-device PWM scan step: step(words, ends, n_true, matrix,
     threshold) -> (positions, n_matches, total).  Every shard scores its
-    reads (kernel 3) and compacts its match positions on its device;
-    matches are read-local, so `positions` (int64, min(cap, positions)
-    rows) and `n_matches` (int64 scalars) stay per shard, one list entry
-    a shard, and `total` is their sum on the lead device."""
+    reads and compacts its match positions on its device (kernel 3 in
+    match mode, ops/pwm_kernels.pwm_matches: on the card in no fixed
+    order); matches are read-local, so `positions` (int64, min(cap,
+    positions) rows) and `n_matches` (int64 scalars) stay per shard, one
+    list entry a shard, and `total` is their sum on the lead device."""
 
     def step(words, ends, n_true, matrix, threshold):
         pos, n_matches = [], []
         for w, e, n in zip(words, ends, n_true):
-            scores = pwm_scores_packed(
-                w, matrix.to(w.device, torch.float32).contiguous(),
-                window_size)
-            p, nm = pwm_match_compact(scores, e, int(n), threshold,
-                                      window_size, cap)
+            p, nm = pwm_matches(
+                w, e, int(n), matrix.to(w.device, torch.float32).contiguous(),
+                window_size, threshold, cap)
             pos.append(p)
             n_matches.append(nm)
         return pos, n_matches, psum(mesh, n_matches)

@@ -14,7 +14,7 @@ before the same count; "auto" times one batch of each and keeps the
 faster.  Then:
 
   fold         per-batch tables merge into a device accumulator every
-               ACC_FOLD batches (parallel/sparse_parallel.py)
+               ACC_FOLD batches (ops/kmers.merge_hash_tables)
   D2H          the final (hash, count) table only, in one copy
 
 Host threads prepare later batches while the device counts earlier
@@ -27,7 +27,7 @@ Hashes, counts and stats equal those of the JAX package's
 count_kmers_fastq on the same file.
 
 get_motif_matches_fastq streams the same batches through the motif scan
-(pwm_scores kernel + on-device match compaction, ops/pwm.py) and fetches
+(pwm_scores kernel in match mode, ops/pwm_kernels.py) and fetches
 only the match positions, one batch late; count_minimizers_fastq streams
 them through the minimizer table (kmer_keys kernel + windowed min,
 ops/minimizers.py) and the same fold and fetch as the k-mer count.
@@ -64,18 +64,18 @@ from .io.files import bnp_open
 from .io.pgzip import _inflate_segment, inflate_members, member_offsets
 from .ops.device import bucket_size, fetch_rows, resolve_device
 from .ops.kmer_kernels import MAX_K
-from .ops.kmers import SENTINEL, WORD_BASES, kmer_sentinel_table_packed
+from .ops.kmers import (SENTINEL, WORD_BASES, kmer_sentinel_table_packed,
+                        merge_hash_tables)
 from .ops.minimizers import minimizer_sentinel_table_packed
 from .ops.parse import fastq_to_sparse_kmer_table
-from .ops.pwm import pwm_match_compact, pwm_scores_packed
+from .ops.pwm_kernels import pwm_matches
 from .ops.tracks import binned_pileup
 from .parallel.mesh import Mesh, put_sharded
 from .parallel.reductions import sharded_binned_pileup_step
-from .parallel.sparse_parallel import (merge_hash_tables,
-                                       sharded_minimizer_count_fold_step,
+from .parallel.sparse_parallel import (sharded_minimizer_count_fold_step,
                                        sharded_pwm_match_step,
                                        sharded_sparse_count_fold_step)
-from .sequence.count_encoded import SparseEncodedCounts
+from .sequence.count_encoded import SparseEncodedCounts, merge_sorted_tables
 
 logger = logging.getLogger(__name__)
 
@@ -1038,7 +1038,7 @@ def _count_kmers_fastq_mesh(path: str, k: int, cap: int,
             np.empty(0, np.int64)), stats
     hashes, counts, meta = table
     if meta["max_unique"] > cap:
-        new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        new_cap = bucket_size(meta["max_unique"], 1)
         add("cap-rerun", 0.0)
         logger.warning(
             "count_kmers_fastq(mesh): shard table overflow (%d > "
@@ -1274,7 +1274,7 @@ def count_kmers_fastq(path: str, k: int = 31, cap: int = 1 << 20,
         # a batch's distinct k-mers overflowed its (truncated) table:
         # redo the whole job ONCE at a cap that fits (the meta carries
         # the true per-batch distinct count, so one rerun suffices)
-        new_cap = 1 << (max_unique - 1).bit_length()
+        new_cap = bucket_size(max_unique, 1)
         add("cap-rerun", 0.0)
         logger.warning(
             "count_kmers_fastq: batch table overflow (%d > cap=%d); "
@@ -1386,9 +1386,8 @@ def get_motif_matches_fastq(path: str, pwm, threshold: float,
                 device, non_blocking=True)
             ends_d = torch.from_numpy(ends).to(device, non_blocking=True)
         with stage("dispatch", device=on_card):
-            scores = pwm_scores_packed(words_d, matrix_d, w)
-            pos_d, nm_d = pwm_match_compact(scores, ends_d, nb, threshold,
-                                            w, cap)
+            pos_d, nm_d = pwm_matches(words_d, ends_d, nb, matrix_d, w,
+                                      threshold, cap)
         # fetch one batch late, so the host never waits on the batch it
         # just launched; a batch keeps its host arrays alive until its
         # fetch, which waits for its work and so for its asynchronous
@@ -1585,7 +1584,7 @@ def count_minimizers_fastq(path: str, k: int = 21, window_size: int = 30,
     def rerun(max_unique):
         # a batch's table was truncated: redo the job ONCE at a cap that
         # fits (the meta carries every batch's true distinct count)
-        new_cap = 1 << (max_unique - 1).bit_length()
+        new_cap = bucket_size(max_unique, 1)
         add("cap-rerun", 0.0)
         logger.warning(
             "count_minimizers_fastq: batch table overflow (%d > cap=%d); "
@@ -1632,7 +1631,7 @@ def _count_minimizers_fastq_mesh(path: str, k: int, window_size: int,
             {"n_reads": 0, "n_bases": 0, "n_windows": 0}
     hashes, counts, meta = table
     if meta["max_unique"] > cap:
-        new_cap = 1 << (meta["max_unique"] - 1).bit_length()
+        new_cap = bucket_size(meta["max_unique"], 1)
         add("cap-rerun", 0.0)
         logger.warning(
             "count_minimizers_fastq(mesh): shard table overflow (%d > "
@@ -1750,30 +1749,3 @@ def binned_pileup_bed(path: str, chromosome_sizes: dict,
            for i, name in enumerate(names)}
     stats = {"n_intervals": n_iv, "n_bins": n_bins}
     return out, stats
-
-
-def merge_sorted_tables(h1, c1, h2, c2):
-    """Merge two SORTED (hash, count) tables, summing equal keys — O(n)
-    numpy passes (an argsort of the concatenation costs ~3x more; this
-    is the associative fold of the reference's stream reductions,
-    bionumpy/streams/reductions.py:6-23)."""
-    if len(h1) == 0:
-        return h2, c2
-    if len(h2) == 0:
-        return h1, c1
-    pos2 = np.searchsorted(h1, h2, side="right") + \
-        np.arange(len(h2), dtype=np.int64)
-    n = len(h1) + len(h2)
-    out_h = np.empty(n, h1.dtype)
-    out_c = np.empty(n, np.int64)
-    mask1 = np.ones(n, bool)
-    mask1[pos2] = False
-    out_h[pos2] = h2
-    out_c[pos2] = c2
-    out_h[mask1] = h1
-    out_c[mask1] = c1
-    keep = np.empty(n, bool)
-    keep[0] = True
-    np.not_equal(out_h[1:], out_h[:-1], out=keep[1:])
-    idx = np.flatnonzero(keep)
-    return out_h[idx], np.add.reduceat(out_c, idx)

@@ -13,7 +13,8 @@ JAX package ships them in its 32-bit delta pack) through
 ops/device.fetch_rows; hashes, counts and GC bins are equal to its
 results, dtypes included.  The public functions are call spans
 (instrument.call_span); each wait for a table's meta is a `D2H-meta`
-span, and each doubling of the cap counts as `cap-rerun`.
+span, and each table compacted again past its cap counts as
+`cap-rerun`.
 """
 from __future__ import annotations
 
@@ -123,8 +124,8 @@ def count_minimizers(sequence, k: int, window_size: int,
     """Count occurrences of each minimizer (one per window): the device-
     compacted twin of count_encoded(get_minimizers(...)), whose copy to
     the host holds the DISTINCT minimizers only.  A table with more than
-    `cap` distinct minimizers is computed again at twice the cap until
-    it fits.
+    `cap` distinct minimizers is compacted again from the same sort at a
+    cap that fits.
 
     Examples
     --------
@@ -134,27 +135,18 @@ def count_minimizers(sequence, k: int, window_size: int,
     >>> sorted(zip(c.alphabet, (int(x) for x in c.counts)))
     [('AC', 2), ('TA', 3)]
     """
-    from ..ops.kmers import counts_from_runs
-    from ..ops.minimizers import minimizer_table_packed
+    from ..ops.kmers import whole_table
+    from ..ops.minimizers import minimizer_keys_masked
     from ..ops.resident import device_seqs
 
     sequence = _as_ragged(_checked(sequence, k, window_size, True))
     ds = device_seqs(sequence, device)
-    while True:
-        uniq, run_starts, meta = minimizer_table_packed(
-            ds.words, ds.ends, ds.n, k, window_size - k + 1,
-            min(cap, ds.n_positions))
-        with stage("D2H-meta", device=meta.is_cuda):
-            n_uni = int(meta[0])
-        if n_uni <= cap or cap >= ds.n_positions:
-            break
-        add("cap-rerun", 0.0)
-        cap *= 2
-    counts = counts_from_runs(run_starts, meta[0], meta[1],
-                              run_starts.numel())
-    rows = fetch_rows(uniq[:n_uni], counts[:n_uni], rows=n_uni)
+    uniq, counts, _ = whole_table(minimizer_keys_masked(
+        ds.words, ds.ends, ds.n, k, window_size - k + 1), cap)
+    n = uniq.numel()
+    rows = fetch_rows(uniq, counts, rows=n)
     return SparseEncodedCounts(KmerEncoding(sequence.encoding, k),
-                               rows[:n_uni].view(np.uint64), rows[n_uni:])
+                               rows[:n].view(np.uint64), rows[n:])
 
 
 @call_span
@@ -183,22 +175,13 @@ def count_minimizers_with_gc(sequence, k: int, window_size: int,
     from ..ops.resident import device_seqs
 
     ds = device_seqs(sequence, device)
-    while True:
-        uniq, counts, meta, gc = minimizer_gc_job_packed(
-            ds.words, ds.ends, ds.n, k, window_size - k + 1,
-            min(cap, ds.n_positions), bin_size)
-        with stage("D2H-meta", device=meta.is_cuda):
-            n_uni = int(meta[0])
-        if n_uni <= cap or cap >= ds.n_positions:
-            break
-        add("cap-rerun", 0.0)
-        cap *= 2
-    rows = fetch_rows(uniq[:n_uni], counts[:n_uni],
-                      gc[: -(-ds.n // bin_size)], rows=n_uni)
+    uniq, counts, _, gc = minimizer_gc_job_packed(
+        ds.words, ds.ends, ds.n, k, window_size - k + 1, cap, bin_size)
+    n = uniq.numel()
+    rows = fetch_rows(uniq, counts, gc[: -(-ds.n // bin_size)], rows=n)
     return (SparseEncodedCounts(KmerEncoding(sequence.encoding, k),
-                                rows[:n_uni].view(np.uint64),
-                                rows[n_uni: 2 * n_uni]),
-            rows[2 * n_uni:].astype(np.int32))
+                                rows[:n].view(np.uint64), rows[n: 2 * n]),
+            rows[2 * n:].astype(np.int32))
 
 
 def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
@@ -206,14 +189,14 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
                                       n_chunks: int, chunk_cap: int,
                                       device=None):
     """The chunked job: each chunk's upload and table are launched
-    without a wait, the chunk tables fold into one accumulator
-    (pipeline._fold_program_impl), and the host waits twice, for the
+    without a wait, the chunk tables merge into one accumulator
+    (ops/kmers.merge_hash_tables), and the host waits twice, for the
     metas and for one copy of [table rows, every chunk's bins]; the
     chunks' global-grid bins add at their offsets."""
-    from ..ops.device import flat_and_lengths
+    from ..ops.device import bucket_size, flat_and_lengths
+    from ..ops.kmers import merge_hash_tables
     from ..ops.minimizers import minimizer_sentinel_gc_group
     from ..ops.resident import device_seqs
-    from ..pipeline import _fold_program_impl, _make_acc
 
     flat, lengths = flat_and_lengths(sequence)
     lengths = lengths.astype(np.int64)
@@ -247,8 +230,9 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
         base += ds.n
     assert base == total
 
-    acc_keys, acc_cnt, acc_nu = _fold_program_impl(
-        _make_acc(cap, tables[0][0].device), tables, cap)
+    acc_keys, acc_cnt, acc_nu = merge_hash_tables(
+        torch.cat([t[0] for t in tables]), torch.cat([t[1] for t in tables]),
+        cap)
     with stage("D2H-meta", device=acc_nu.is_cuda):
         probe = torch.cat([m.to(torch.int64) for m in
                            (*metas, acc_nu.reshape(1))]).cpu().numpy()
@@ -258,7 +242,7 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
         add("cap-rerun", 0.0)
         return _count_minimizers_with_gc_chunked(
             sequence, k, window_size, cap, bin_size, n_chunks,
-            1 << (max_unique - 1).bit_length(), device)
+            bucket_size(max_unique, 1), device)
     if nu >= cap:
         raise ValueError(f"distinct minimizers >= cap={cap}; raise cap")
     rows = fetch_rows(acc_keys[:nu], acc_cnt[:nu], *gcs, rows=nu)

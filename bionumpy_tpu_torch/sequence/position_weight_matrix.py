@@ -176,8 +176,8 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
     (ops/pwm.pwm_scan_matches), so the copy to the host holds the
     matches only.  Windows up to 32 take one launch of kernel 3 in match
     mode a resident block, and one more at the exact count where a block
-    has more than `cap` matches; wider windows are compacted block by
-    block of 2^27 positions, again at twice the cap until they fit.  An
+    has more than `cap` matches; wider windows are scored block by block
+    of 2^27 positions, each block compacted at its match count.  An
     array of more than 2^31 bases is held as resident blocks of whole
     rows (ops/resident.device_seq_blocks).
 

@@ -49,7 +49,8 @@ each of which raises on failure:
   5. motif     get_motif_matches_fastq on the card over the first 512
                members, warm-up + timed run; the (read, offset) matches
                must equal a numpy recount, and the pwm_scores kernel
-               must have launched once per batch; profiled as phase 4
+               must have launched in match mode once per batch;
+               profiled as phase 4
   6. device-parse  count_kmers_fastq(device_parse=True) over the phase 4
                file: warm-up, timed and profiled runs, then one with
                "auto"; each table must equal the recount and phase 4's
@@ -161,7 +162,8 @@ each of which raises on failure:
                shard a batch) and again at a shard cap that overflows
                (the rerun logged, the same table), count_minimizers_fastq
                (phase 9's table), get_motif_matches_fastq over phase 5's
-               file (phase 5's matches, kernel 3 once a shard a batch),
+               file (phase 5's matches, kernel 3 in match mode once a
+               shard a batch),
                binned_pileup_bed over phase 18's BED (the single-device
                bins); the histogram, sum-and-n and pileup steps over
                phase 18's chr21 fragments and the halo k-mer and
@@ -854,10 +856,10 @@ def phase_motif(dev, workdir: str, variants, lengths):
             stats["n_reads"] != MOTIF_MEMBERS * N_READS or \
             stats["n_bases"] != MOTIF_MEMBERS * int(lengths.sum()):
         raise AssertionError(f"stats {stats} disagree with the recount")
-    if launches["pwm_scores_kernel"] < n_batches:
+    if launches["pwm_scores_kernel.match"] < n_batches:
         raise AssertionError(f"pwm_scores_kernel launched "
-                             f"{launches['pwm_scores_kernel']} times for "
-                             f"{n_batches} batches")
+                             f"{launches['pwm_scores_kernel.match']} times "
+                             f"in match mode for {n_batches} batches")
     log(f"[motif] exact: {stats['n_reads']} reads, {stats['n_bases']} "
         f"bases, {stats['n_matches']} matches, {n_batches} batches")
     log("[motif] " + json.dumps({
@@ -2815,7 +2817,7 @@ def phase_mesh(dev, workdir: str, counts, stats, min_counts, motif):
         if not (np.array_equal(rows, m_rows) and np.array_equal(offs, m_offs)):
             raise AssertionError(f"the motif matches on {name} differ from "
                                  f"phase 5's")
-        per_shard("motif", name, "pwm_scores_kernel", n_dev)
+        per_shard("motif", name, "pwm_scores_kernel.match", n_dev)
         bins, _ = timed("binned_pileup_bed", name, lambda: bt.binned_pileup_bed(
             bed_path, sizes, 1000, mesh=mesh))
         if not all(np.array_equal(bins[c], single_bins[0][c]) for c in sizes):
@@ -2913,7 +2915,8 @@ def phase_mesh(dev, workdir: str, counts, stats, min_counts, motif):
         log("[mesh] scaling " + json.dumps(rec))
     out = {name: {kernel: sum(launches[job][name][kernel]
                               for job in ("kmers", "minimizers", "motif"))
-                  for kernel in ("kmer_keys_kernel", "pwm_scores_kernel")}
+                  for kernel in ("kmer_keys_kernel", "pwm_scores_kernel",
+                                 "pwm_scores_kernel.match")}
            for name in meshes}
     return out
 
@@ -3095,8 +3098,7 @@ def main() -> int:
         "open_records": pwm(records_launches),
         "intervals": pwm(interval_launches),
         "genomic": pwm(genomic_launches),
-        **{f"{name}_jobs": n["pwm_scores_kernel"]
-           for name, n in mesh_launches.items()},
+        **{f"{name}_jobs": pwm(n) for name, n in mesh_launches.items()},
         "simulate": sim_launches["pwm_scores_kernel"]}
     print(json.dumps({"torch_ops": op_rows}))
     print(json.dumps({"kernels": rows}))

@@ -198,9 +198,10 @@ def test_cap_rerun_counted(monkeypatch):
     assert np.array_equal(got.label_codes, want.label_codes)
     assert np.array_equal(got.counts, want.counts)
     rep = instrument.report()
+    # compacted again from the one sort, after the one wait
     assert rep["cap-rerun"]["calls"] == 1
-    assert rep["sort"]["calls"] == 2 and rep["sort"]["rows"] == 2 << 16
-    assert rep["D2H-meta"]["calls"] == 2
+    assert rep["sort"]["calls"] == 1 and rep["sort"]["rows"] == 1 << 16
+    assert rep["D2H-meta"]["calls"] == 1
     rerun = by_name(instrument.spans())["cap-rerun"][0]
     assert rerun["parent"] == "count_kmers" and rerun["call"] is not None
 
@@ -209,7 +210,7 @@ def test_minimizer_cap_reruns_counted():
     seqs = reads(n_rows=200)
     bt.count_minimizers_with_gc(seqs, 11, 15, cap=64, device="cpu")
     rep = instrument.report()
-    assert rep["cap-rerun"]["calls"] == rep["sort"]["calls"] - 1 >= 1
+    assert rep["cap-rerun"]["calls"] == rep["sort"]["calls"] == 1
     assert rep["D2H"]["calls"] == 1
 
 

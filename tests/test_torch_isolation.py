@@ -1,7 +1,8 @@
 """The port stands alone: bionumpy_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package, the port's main path runs without
-loading either, it never falls back to the CPU for lack of a card, and
-its kernel module imports without a CUDA compiler."""
+neither JAX nor the JAX package, its sequence/ and ops/ layers import
+neither its pipeline nor its parallel steps, the port's main path runs
+without loading either, it never falls back to the CPU for lack of a
+card, and its kernel module imports without a CUDA compiler."""
 import ast
 import os
 import pathlib
@@ -31,6 +32,37 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imported_roots(f) if name in FORBIDDEN]
+    assert bad == []
+
+
+def _imported_modules(path, package):
+    """Every module a file imports, and every name it imports from one,
+    as absolute dotted names (relative imports resolved against the
+    file's package)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = package.split(".")
+            base = parts[: len(parts) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            yield module
+            yield from (f"{module}.{alias.name}" for alias in node.names)
+
+
+def test_table_layers_import_neither_pipeline_nor_parallel():
+    """sequence/ and ops/ sit below the orchestrators: the device tables,
+    their merges and their host merge live there."""
+    files = [f for layer in ("sequence", "ops")
+             for f in sorted((ROOT / "bionumpy_tpu_torch" / layer).rglob(
+                 "*.py"))]
+    assert len(files) > 20
+    above = ("bionumpy_tpu_torch.pipeline", "bionumpy_tpu_torch.parallel")
+    bad = [(str(f.relative_to(ROOT)), name) for f in files
+           for name in _imported_modules(
+               f, ".".join(f.relative_to(ROOT).parent.parts))
+           if any(name == a or name.startswith(a + ".") for a in above)]
     assert bad == []
 
 

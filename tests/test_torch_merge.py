@@ -54,6 +54,29 @@ def test_merge_hash_tables_matches_jax(cap_out):
     np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(m_cnt))
 
 
+def test_merge_at_exactly_cap_out_keys_keeps_the_last_total():
+    """With sentinel rows in the input and exactly cap_out distinct keys,
+    the JAX merge cuts its last total (its run of sentinels counts
+    against cap_out); the port's sort step leaves the sentinels out of
+    the runs, so every total is whole.  The rest equals JAX's."""
+    lo, hi, cnt = _random_tables(11)
+    keys, counts = convert.table_from_jax((lo, hi, cnt))
+    real = keys != tk.SENTINEL
+    uniq, inverse = np.unique(keys[real].numpy(), return_inverse=True)
+    totals = np.bincount(inverse, weights=counts[real].numpy())
+    cap_out = len(uniq)
+    assert (~real).any() and cap_out < len(keys)
+    t_keys, t_cnt, t_nu = merge_hash_tables(keys, counts, cap_out)
+    m_lo, m_hi, m_cnt, n_u = jmerge(jnp.asarray(lo), jnp.asarray(hi),
+                                    jnp.asarray(cnt), cap_out)
+    assert int(t_nu) == int(n_u) == cap_out
+    np.testing.assert_array_equal(t_keys.numpy(), uniq)
+    np.testing.assert_array_equal(t_keys.numpy(), _keys(m_lo, m_hi))
+    np.testing.assert_array_equal(t_cnt.numpy(), totals.astype(np.int64))
+    np.testing.assert_array_equal(t_cnt.numpy()[:-1], np.asarray(m_cnt)[:-1])
+    assert t_cnt[-1] != int(np.asarray(m_cnt)[-1])
+
+
 def _batches(seed, n_batches, k=31):
     rng = np.random.default_rng(seed)
     out = []

@@ -5,6 +5,8 @@ GC bins and dtypes.  Every input holds under 2^14 bases, so both
 packages use one bucket.  The port's minimizer keys may differ from the
 JAX package's only at windows that leave their row (the sentinel there);
 those windows are masked before every comparison."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from bionumpy_tpu.encodings import ACGTnEncoding as JACGTnEncoding
 from bionumpy_tpu.ops import kmers as jkmers
 from bionumpy_tpu.ops import minimizers as jmin
 from bionumpy_tpu.ops import tracks as jtracks
+from bionumpy_tpu_torch import instrument
 from bionumpy_tpu_torch.encodings import ACGTnEncoding
 from bionumpy_tpu_torch.ops import kmers as tkmers
 from bionumpy_tpu_torch.ops import minimizers as tmin
@@ -107,6 +110,44 @@ def test_count_minimizers_with_gc_matches_jax(k, w, cap):
     assert len(got_gc) == -(-n // 97)
     np.testing.assert_array_equal(got_gc, np.add.reduceat(
         ((flat == 1) | (flat == 2)).astype(np.int64), np.arange(0, n, 97)))
+
+
+@pytest.mark.parametrize("cap", [1, 64, None])
+@pytest.mark.parametrize("table", ["count_kmers", "count_minimizers",
+                                   "count_minimizers_with_gc"])
+def test_one_sort_at_any_cap(monkeypatch, table, cap):
+    """A resident table sorts its keys once whatever cap its first
+    compaction takes (None: the default; 1 and 64 lie below the distinct
+    count, so the table is compacted again from the same sort), and
+    equals the JAX package's."""
+    seqs, jseqs = _pair(_strings(30, seed=5))
+    kw = {} if cap is None else {"cap": cap}
+    if table == "count_kmers":
+        # count_kmers takes no cap: its table's default is set here
+        if cap is not None:
+            monkeypatch.setattr(tkmers, "sparse_count_tables",
+                                functools.partial(tkmers.sparse_count_tables,
+                                                  cap=cap))
+        want = jbnp.count_kmers(jseqs, 31)
+        def run():
+            return tbnp.count_kmers(seqs, 31, device="cpu")
+    elif table == "count_minimizers":
+        want = jbnp.sequence.count_minimizers(jseqs, 21, 30)
+        def run():
+            return tbnp.count_minimizers(seqs, 21, 30, device="cpu", **kw)
+    else:
+        want = jbnp.sequence.count_minimizers_with_gc(jseqs, 21, 30,
+                                                      bin_size=97)[0]
+        def run():
+            return tbnp.count_minimizers_with_gc(seqs, 21, 30, bin_size=97,
+                                                 device="cpu", **kw)[0]
+    instrument.reset()
+    got = run()
+    rep = instrument.report()
+    assert rep["sort"]["calls"] == 1
+    assert rep.get("cap-rerun", {}).get("calls", 0) == (cap is not None)
+    _assert_same_table(got, want)
+    assert len(got.label_codes) > 64
 
 
 def _chunk_starts(lengths, n_chunks):
@@ -288,8 +329,9 @@ def test_minimizer_table_and_groups_equal_jax(k, w, cap):
                                                       w - k + 1, cap, 100)
     np.testing.assert_array_equal(gc2.numpy(), np.asarray(
         jtracks.gc_binned_from_packed(words, n, 100)))
-    np.testing.assert_array_equal(c2.numpy()[live], j_cnt[live])
-    np.testing.assert_array_equal(u2.numpy()[live], j_sent[live])
+    # the whole table: its n_unique rows, where the JAX package's has cap
+    np.testing.assert_array_equal(c2.numpy(), j_cnt[live])
+    np.testing.assert_array_equal(u2.numpy(), j_sent[live])
     np.testing.assert_array_equal(meta2.numpy(), j_meta)
 
 

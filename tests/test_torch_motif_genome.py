@@ -8,7 +8,7 @@
 - windows up to 32 in one match-mode launch of kernel 3 a resident
   block, with one wait for its count and one rerun at the exact count
   past the cap; wider windows through the blocked scan of the codes,
-  with its cap doubling inside a block;
+  one wait a scan block and its matches compacted at their count;
 - the spans a scan opens, the refusal of arrays whose int32 row ends
   would wrap;
 - the threshold against a count over every window at w <= 8;
@@ -172,8 +172,13 @@ def test_cap_doubles_inside_a_block(blocked):
     want = _ref_keys(flat, lengths, matrices, threshold)
     np.testing.assert_array_equal(got, want.numpy())
     rep = instrument.report()
-    # more compactions than blocks: blocks were compacted again
-    assert rep["D2H-meta"]["calls"] > rep["pwm-compact"]["calls"]
+    # one wait a scan block, its matches compacted at their count
+    assert rep["D2H-meta"]["calls"] == rep["pwm-compact"]["calls"] == \
+        rep["pwm-scan"]["calls"]
+    assert "cap-rerun" not in rep
+    assert rep["pwm-compact"]["rows"] == len(got)
+    assert max(s["rows"] for s in instrument.spans()
+               if s["name"] == "pwm-compact") > 1  # past the cap
 
 
 def test_spans_of_a_scan():
