@@ -27,17 +27,22 @@ block, the handle device_seqs makes.
 
 The cache lives on the array under one attribute, a dict keyed by device
 (and by (device, "blocks") for the blocks), so a handle made for the CPU
-is never served to a card call.  The only mutation paths,
-EncodedArray.__setitem__ and EncodedRaggedArray.__setitem__, call
-invalidate(), which drops the whole dict; arrays made by indexing start
-with no cache.
+is never served to a card call.  max_code keeps the array's largest code
+in the same dict (key "max_code"), so the motif scans' check of the
+codes reads them once per array, not once per call.  The only mutation
+paths, EncodedArray.__setitem__ and EncodedRaggedArray.__setitem__,
+call invalidate(), which drops the whole dict; arrays made by indexing
+start with no cache.  A write through a view (`s.ravel().raw()[i] = c`)
+bypasses __setitem__ and leaves the handles and the largest code stale:
+call invalidate(s) after one.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..instrument import stage
+from ..instrument import add, stage
+from ..ragged import RaggedArray
 from .device import flat_and_lengths, resolve_device
 from . import kmers
 from .kmers import WORD_BASES, prepare_packed
@@ -45,6 +50,8 @@ from .kmers import WORD_BASES, prepare_packed
 # uploads of sequence payloads through this module, and their bytes
 TRANSFER_COUNT = 0
 TRANSFER_BYTES = 0
+# codes read on the host by max_code's pass over an array
+CODES_READ = 0
 
 _CACHE_ATTR = "_device_seqs_cache"
 
@@ -161,6 +168,24 @@ def device_seq_blocks(sequence, device=None) -> list:
     if cache is not None:
         cache[(dev, "blocks")] = blocks
     return blocks
+
+
+def max_code(sequence) -> int:
+    """The largest flat code of an EncodedArray / EncodedRaggedArray (0
+    when empty), read once and cached on the array until invalidate();
+    a call served from the cache counts as `check-codes-cached`."""
+    global CODES_READ
+    cache = _cache_of(sequence)
+    if cache is not None and "max_code" in cache:
+        add("check-codes-cached", 0.0, rows=1)
+        return cache["max_code"]
+    raw = sequence.raw()
+    flat = np.asarray(raw.ravel() if isinstance(raw, RaggedArray) else raw)
+    value = int(np.max(flat, initial=0))
+    CODES_READ += flat.size
+    if cache is not None:
+        cache["max_code"] = value
+    return value
 
 
 def invalidate(sequence) -> None:

@@ -60,15 +60,16 @@ class PWM:
         """The sequence as an array encoded over this PWM's alphabet: an
         alphabet-encoded array whose alphabet starts with the PWM's (and
         whose codes stay inside it) as it is, a code array wrapped, and
-        anything else encoded."""
+        anything else encoded.  The largest code of an encoded array is
+        read once and cached on it (ops/resident.max_code)."""
+        from ..ops.resident import max_code
+
         if isinstance(sequence, (EncodedArray, EncodedRaggedArray)):
             if isinstance(sequence.encoding, AlphabetEncoding):
                 alphabet = list(sequence.encoding.get_alphabet())
                 own = list(self._alphabet)
-                raw = sequence.raw()
-                flat = raw.ravel() if isinstance(raw, RaggedArray) else raw
-                max_code = int(np.max(np.asarray(flat), initial=0))
-                if alphabet[: len(own)] != own or max_code >= len(own):
+                if alphabet[: len(own)] != own or \
+                        max_code(sequence) >= len(own):
                     raise ValueError(
                         f"Cannot calculate pwm for alphabet {own} on "
                         f"{alphabet}-encoded array")
@@ -179,7 +180,12 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
     has more than `cap` matches; wider windows are scored block by block
     of 2^27 positions, each block compacted at its match count.  An
     array of more than 2^31 bases is held as resident blocks of whole
-    rows (ops/resident.device_seq_blocks).
+    rows (ops/resident.device_seq_blocks).  The check that the array's
+    codes lie inside the PWM's alphabet reads them once per array and
+    keeps the largest beside the resident blocks (ops/resident.max_code):
+    mutate the array through `__setitem__`, or call
+    `ops.resident.invalidate(sequence)` after a write through a view
+    (`sequence.ravel().raw()[i] = c`), else both are stale.
 
     Examples
     --------
@@ -193,17 +199,21 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
     >>> [[int(x) for x in np.asarray(row)] for row in m]
     [[2], [0, 2]]
     """
+    from ..ops import resident
     from ..ops.device import fetch_rows
     from ..ops.pwm import pwm_scan_matches
-    from ..ops.resident import device_seq_blocks
 
-    with stage("check-codes"):
-        sequence = pwm.as_valid_encoded_array(as_encoded_array(sequence))
+    with stage("check-codes") as span:
+        read = resident.CODES_READ
+        try:
+            sequence = pwm.as_valid_encoded_array(as_encoded_array(sequence))
+        finally:
+            span.rows = resident.CODES_READ - read
     if isinstance(sequence, EncodedArray):
         sequence = EncodedRaggedArray(sequence, [len(sequence)])
     if pwm.matrix.shape[0] != 4 or not _four_letters(sequence, pwm):
         raise ValueError("device motif matching needs a 4-letter alphabet")
-    blocks = device_seq_blocks(sequence, device)
+    blocks = resident.device_seq_blocks(sequence, device)
     matrix = _device_matrix(pwm, blocks[0].words.device)
     parts, base = [], 0
     for ds in blocks:

@@ -14,6 +14,7 @@ import bionumpy_tpu_torch as tbnp
 from bionumpy_tpu.io.motifs import read_motif as jread_motif
 from bionumpy_tpu.ops import pwm as jpwm
 from bionumpy_tpu.sequence import position_weight_matrix as jpw
+from bionumpy_tpu_torch import instrument
 from bionumpy_tpu_torch.encodings import AlphabetEncoding
 from bionumpy_tpu_torch.io.motifs import Motif, read_motif
 from bionumpy_tpu_torch.ops import pwm as tpwm
@@ -185,6 +186,99 @@ def test_flat_input_and_alphabet_checks_like_jax():
             p.calculate_scores([0, 1, 2])
     with pytest.raises(ValueError):
         pwm.calculate_scores("ACGN")
+
+
+CLEAN = ["ACGTACGTTA", "", "CCGTA", "GATTACAGGT"]
+WITH_N = CLEAN[:-1] + ["GATTNCAGGT"]
+
+
+def _check(pwm, seqs):
+    """`pwm`'s check of `seqs`'s codes: its ValueError's message, or None
+    where it passes."""
+    try:
+        pwm.as_valid_encoded_array(seqs)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def _write_n(seqs, case):
+    """An N into row 0, base 2: through __setitem__, or through a view of
+    the codes (with the port's array invalidated after it)."""
+    if case == "setitem":
+        seqs[0, 2] = "N"
+    else:
+        seqs.ravel().raw()[2] = 4
+        if isinstance(seqs, tbnp.EncodedRaggedArray):
+            resident.invalidate(seqs)
+
+
+@pytest.mark.parametrize("case", ["N held", "clean", "setitem",
+                                  "view write and invalidate", "slice"])
+def test_code_check_once_per_array(case):
+    """The port checks an array's codes once and keeps its largest code
+    until __setitem__ or invalidate; a slice is checked afresh.  Each
+    check decides as the JAX package's does, with the same message, and
+    reads the array's codes on the host only when nothing is cached."""
+    strings = WITH_N if case in ("N held", "slice") else CLEAN
+    pwm, jax_pwm = _pwms(20, window=3)
+    seqs, jseqs = _pair(strings, "ACGTN")
+    n = seqs.size
+    read = resident.CODES_READ
+    first = _check(pwm, seqs)
+    assert first == _check(jax_pwm, jseqs)
+    assert resident.CODES_READ - read == n
+    if case in ("setitem", "view write and invalidate"):
+        for s in (seqs, jseqs):
+            _write_n(s, case)
+    if case == "slice":
+        seqs, jseqs = seqs[:-1], jseqs[:-1]
+    read = resident.CODES_READ
+    second = _check(pwm, seqs)
+    assert second == _check(jax_pwm, jseqs)
+    failed = first is not None, second is not None
+    codes_read = resident.CODES_READ - read
+    if case == "N held":
+        assert failed == (True, True) and codes_read == 0
+    elif case == "clean":
+        assert failed == (False, False) and codes_read == 0
+    elif case == "slice":
+        assert failed == (True, False) and codes_read == seqs.size < n
+    else:
+        assert failed == (False, True) and codes_read == n
+    for said in (first, second):
+        assert said is None or said.startswith("Cannot calculate pwm")
+
+
+@pytest.mark.parametrize("alphabet", ["ACGT", "ACGTN"])
+def test_second_motif_call_reads_no_codes(alphabet):
+    """Two get_motif_matches calls on one array: the first reads its codes
+    in the `check-codes` span, the second reads none and counts one
+    `check-codes-cached`.  An ACGT array gives the JAX package's matches
+    both times; an ACGTN array holding an N raises its ValueError both
+    times."""
+    pwm, jax_pwm = _pwms(21, window=3)
+    strings = CLEAN if alphabet == "ACGT" else WITH_N
+    seqs, jseqs = _pair(strings, alphabet)
+    instrument.reset()
+    for call in range(2):
+        if alphabet == "ACGT":
+            got = tbnp.get_motif_matches(seqs, pwm, 0.5, device="cpu")
+            want = jpw.get_motif_matches(jseqs, jax_pwm, 0.5)
+            np.testing.assert_array_equal(got.lengths, want.lengths)
+            np.testing.assert_array_equal(got.ravel(), want.ravel())
+        else:
+            with pytest.raises(ValueError) as jax_err:
+                jpw.get_motif_matches(jseqs, jax_pwm, 0.5)
+            with pytest.raises(ValueError, match="Cannot calculate pwm") \
+                    as err:
+                tbnp.get_motif_matches(seqs, pwm, 0.5, device="cpu")
+            assert str(err.value) == str(jax_err.value)
+    rows = [s["rows"] for s in instrument.spans()
+            if s["name"] == "check-codes"]
+    assert rows == [seqs.size, 0]
+    assert instrument.report()["check-codes-cached"] == {
+        "seconds": 0.0, "calls": 1, "self_seconds": 0.0, "rows": 1}
 
 
 def test_position_weight_matrix_rolls_like_jax():

@@ -458,3 +458,27 @@ def test_fused_scan_on_card_launches_once_a_block(cuda, monkeypatch, cap):
     assert rep["D2H-meta"]["calls"] == 2 * n_blocks
     assert (reruns >= 1) == (cap == 1)
     assert len(got) > 500
+
+
+@pytest.mark.cuda
+def test_second_scan_of_a_genome_reads_no_codes(cuda):
+    """Two scans of one array of more than 2^31 bases, held as two
+    resident blocks: the same matches, and only the first call reads the
+    array's codes on the host; the second takes their largest from the
+    array's cache."""
+    pwms, matrices = _motif(19, 71)
+    lengths = np.array([1 << 30, 1 << 30, 1 << 20])
+    n = int(lengths.sum())
+    flat = np.frombuffer(np.random.default_rng(72).bytes(n), np.uint8) & 3
+    seqs = _seqs(flat, lengths)
+    threshold = M.threshold(matrices[0], 1e-4)
+    instrument.reset()
+    first = bt.get_motif_matches(seqs, pwms[0], threshold, device=cuda)
+    second = bt.get_motif_matches(seqs, pwms[0], threshold, device=cuda)
+    assert len(resident.device_seq_blocks(seqs, cuda)) == 2
+    np.testing.assert_array_equal(first.lengths, second.lengths)
+    np.testing.assert_array_equal(first.ravel(), second.ravel())
+    assert int(first.lengths.sum()) > 100_000
+    assert [s["rows"] for s in instrument.spans()
+            if s["name"] == "check-codes"] == [n, 0]
+    assert instrument.report()["check-codes-cached"]["calls"] == 1
