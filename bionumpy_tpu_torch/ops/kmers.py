@@ -10,7 +10,12 @@ port, merges included) -> compaction of the run heads to the front of a
 
 whole_table owns the size policy of a table that its caller fetches
 whole: it waits once for the table's row count and compacts again from
-the same sort where `cap` was too small.  Everything else here stays
+the same sort where `cap` was too small.  blocked_table owns it for an
+array's resident blocks (ops/resident.device_seq_blocks): one block
+whose sort fits the card is one pass, whole_table; a larger array is
+cut into passes of whole rows (table_passes) whose tables are folded on
+the card into one accumulator (fold_tables, over merge_hash_tables),
+and the host waits once for every pass's meta.  Everything else here stays
 asynchronous on the card: no `.item()`, no `nonzero`, no shape that
 depends on the data.  Counts are device scalars and int64 tensors until
 the caller fetches them.
@@ -24,6 +29,8 @@ checksums the keys kernel.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,11 +43,27 @@ from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
 _M32 = 0xFFFFFFFF
 # the most bases one packed batch holds: its row ends are int32
 MAX_PACKED_BASES = (1 << 31) - 1
+# the most positions (the block's power-of-two bucket) of one resident
+# block whose table is one whole_table sort: ~50 bytes a position at its
+# peak, so 2^30 fits an 80 GB H100 and the next bucket, 2^31, does not
+WHOLE_TABLE_POSITIONS = 1 << 30
+# the most bases one pass of blocked_table keys, unless a row alone is
+# longer.  A fold merges a pass's table (up to this many rows) into the
+# accumulator: hg38's minimizers at k = 15 in 16 passes and a 2^29-row
+# accumulator peak at 69.3 GB of an 80 GB H100, so 2^29 would not fit
+TABLE_PASS_POSITIONS = 1 << 28
+# the most rows fold_tables merges at once where it can choose when: the
+# pass tables wait until one more would pass this, so small tables (the
+# chunked GC job's) merge once, and the largest fold is the one above
+FOLD_ROWS = 3 << 28
+# count_kmers' first cap (its table is compacted again where it passes)
+KMER_TABLE_CAP = 1 << 20
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
            "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
            "sort_runs", "compact_runs", "sorted_runs_from_keys",
-           "whole_table", "merge_hash_tables",
+           "whole_table", "sentinel_table", "merge_hash_tables",
+           "fold_tables", "table_passes", "blocked_table", "fetched_table",
            "counts_from_runs", "kmer_sentinel_table_packed",
            "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
            "sparse_count_tables", "kmer_fullsum_packed",
@@ -200,6 +223,173 @@ def merge_hash_tables(keys: torch.Tensor, cnt: torch.Tensor, cap_out: int):
             torch.clamp(n_unique, max=cap_out))
 
 
+def sentinel_table(keys: torch.Tensor, cap: int):
+    """The fold-ready table of the keys: (keys, counts) int64 rows, as
+    many as min(cap, len(keys)), the unused ones (SENTINEL, 0), and the
+    (2,) int64 meta [n_unique, n_valid].  n_unique is the true distinct
+    count even where it exceeds the rows (the table then holds the first
+    runs, as in the JAX package), so tables of several batches
+    concatenate and merge with merge_hash_tables."""
+    uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
+        keys, min(cap, keys.numel()))
+    rows = run_starts.numel()
+    cnt = counts_from_runs(run_starts, n_unique, n_valid, rows)
+    live = torch.arange(rows, device=keys.device) < n_unique
+    return (torch.where(live, uniq, SENTINEL), cnt,
+            torch.stack([n_unique, n_valid]))
+
+
+def fold_tables(key_passes, cap: int, pass_cap: int, on_card: bool):
+    """The tables of passes of keys folded into one, with no wait.  Each
+    of `key_passes` is (rows, make_keys): make_keys() returns one pass's
+    int64 keys, and rows bounds the rows of its table.  Each pass makes a
+    sentinel_table of min(pass_cap, len(keys)) rows (the `table-pass`
+    span: device time if `on_card`, rows the keys).  The tables wait
+    until the rows held, the accumulator's included, would pass
+    FOLD_ROWS with the next table; then they merge, with the accumulator
+    once there is one, into an accumulator of `cap` rows
+    (merge_hash_tables, the `table-fold` span: device time, rows those
+    merged, padding included).  What waits at the end merges last; a
+    single table is the accumulator as it is.  Counts once as
+    `table-passes`, rows the passes.  Returns (keys, counts, probe): the
+    accumulator and one int64 device tensor of each pass's [n_unique,
+    n_valid] and then the accumulator's n_unique, at most its rows;
+    `cap` or more there means the fold cut a total."""
+    metas, held, acc = [], [], None
+
+    def fold():
+        nonlocal acc
+        if acc is not None:
+            held.insert(0, acc[:2])
+        keys_in = torch.cat([t[0] for t in held])
+        cnt_in = torch.cat([t[1] for t in held])
+        acc = None
+        held.clear()  # freed before the merge's sort
+        with stage("table-fold", rows=keys_in.numel(), device=on_card):
+            acc = merge_hash_tables(keys_in, cnt_in, cap)
+
+    for rows, make_keys in key_passes:
+        held_rows = sum(t[0].numel() for t in held)
+        if acc is not None:
+            held_rows += acc[0].numel()
+        if len(held) + (acc is not None) > 1 \
+                and held_rows + rows > FOLD_ROWS:
+            fold()
+        with stage("table-pass", device=on_card) as span:
+            keys = make_keys()
+            span.rows = keys.numel()
+            t_keys, t_cnt, meta = sentinel_table(keys, pass_cap)
+            del keys  # freed before the next pass or the fold
+        metas.append(meta)
+        held.append((t_keys, t_cnt))
+        del t_keys, t_cnt
+    if acc is None and len(held) == 1:
+        t_keys, t_cnt = held.pop()
+        acc = t_keys, t_cnt, torch.clamp(metas[0][0], max=t_keys.numel())
+    elif held:
+        fold()
+    add("table-passes", 0.0, rows=len(metas))
+    return acc[0], acc[1], torch.cat([*metas, acc[2].reshape(1)])
+
+
+def table_passes(blocks) -> list:
+    """The passes of a table over an array's resident blocks
+    (ops/resident.DeviceSeqs, in row order): (block, first row, end row,
+    first base, end base).  An array of one block of at most
+    WHOLE_TABLE_POSITIONS positions is one pass, without a look at its
+    rows.  Any other is cut into runs of whole rows of one block, each of
+    at most TABLE_PASS_POSITIONS bases, filled greedily from the block's
+    first row; a row longer than that is a pass alone.  No window
+    crosses a pass."""
+    if len(blocks) == 1 and blocks[0].n_positions <= WHOLE_TABLE_POSITIONS:
+        ds = blocks[0]
+        return [(ds, 0, len(ds.lengths), 0, ds.n)]
+    out = []
+    for ds in blocks:
+        ends = np.cumsum(np.asarray(ds.lengths, np.int64))
+        r0, base = 0, 0
+        while r0 < len(ends):
+            r1 = max(int(np.searchsorted(ends, base + TABLE_PASS_POSITIONS,
+                                         side="right")), r0 + 1)
+            if ends[r1 - 1] > base:  # a pass of empty rows keys nothing
+                out.append((ds, r0, r1, base, int(ends[r1 - 1])))
+            base, r0 = int(ends[r1 - 1]), r1
+    return out
+
+
+def _pass_words(one_pass):
+    """The word span of one pass of table_passes: (first word, end word),
+    the end past the word of its last base and the 2 halo words."""
+    _, _, _, p0, p1 = one_pass
+    return p0 // WORD_BASES, -(-p1 // WORD_BASES) + 2
+
+
+def _pass_keys(one_pass, keys_of) -> torch.Tensor:
+    """keys_of(words, ends, n_true) over the words that hold one pass of
+    table_passes, from the word of its first base: the row ends shifted
+    to those words, a first row end put at the pass's first base, and
+    the sentinel at the positions before it."""
+    ds, r0, r1, p0, p1 = one_pass
+    w0, w1 = _pass_words(one_pass)
+    off = p0 - w0 * WORD_BASES
+    ends = torch.cat([ds.ends.new_full((1,), off),
+                      ds.ends[r0:r1] - w0 * WORD_BASES])
+    keys = keys_of(ds.words[w0:w1], ends, p1 - w0 * WORD_BASES)
+    keys[:off] = SENTINEL
+    return keys
+
+
+def blocked_table(passes, keys_of, cap: int):
+    """The whole (keys, counts) table of the passes of an array's
+    resident blocks (table_passes), for a caller that fetches it:
+    n_unique rows each.  `keys_of(words, ends, n_true)` gives the int64
+    key of every window of a packed batch, the sentinel where none
+    counts (kmer_keys, minimizer_keys_masked).
+
+    One pass is whole_table over the block's keys.  More passes are
+    folded on the card (fold_tables): each pass's table at min(cap, its
+    keys) rows, the accumulator at `cap` rows; the host waits once, for
+    every pass's meta and the accumulator's row count (`D2H-meta`).
+    Where a table passed its cap, the passes run once more
+    (`cap-rerun`), each table at the power of two that fits the largest,
+    the accumulator at the power of two that fits the passes' distinct
+    keys summed (more memory than a `cap` that fits)."""
+    if len(passes) == 1:
+        ds = passes[0][0]
+        uniq, counts, _ = whole_table(keys_of(ds.words, ds.ends, ds.n), cap)
+        return uniq, counts
+
+    def folded(cap, pass_cap):
+        keys, counts, probe = fold_tables(
+            [(min(pass_cap, (w1 - w0 - 2) * WORD_BASES),
+              functools.partial(_pass_keys, p, keys_of))
+             for p, (w0, w1) in zip(passes, map(_pass_words, passes))],
+            cap, pass_cap, passes[0][0].words.is_cuda)
+        with stage("D2H-meta", device=probe.is_cuda):
+            probe = probe.cpu().numpy()
+        return keys, counts, probe
+
+    keys, counts, probe = folded(cap, cap)
+    if probe[-1] >= cap:
+        # a pass's table past its cap makes the accumulator pass it too
+        add("cap-rerun", 0.0)
+        keys = counts = None
+        n_unique = probe[:-1:2]
+        keys, counts, probe = folded(
+            bucket_size(int(min(n_unique.sum(), probe[1:-1:2].sum())), 1),
+            bucket_size(int(n_unique.max()), 1))
+    n = int(probe[-1])
+    return keys[:n], counts[:n]
+
+
+def fetched_table(keys: torch.Tensor, counts: torch.Tensor):
+    """A whole table on the host: (keys as uint64, int64 counts) of its
+    rows, fetched in one copy (ops/device.fetch_rows)."""
+    n = keys.numel()
+    rows = fetch_rows(keys, counts, rows=n)
+    return rows[:n].view(np.uint64), rows[n:]
+
+
 def kmer_sorted_runs_packed(words: torch.Tensor, ends: torch.Tensor,
                             k: int, n_true: int = None, cap: int = None):
     """Exact sparse k-mer counting core of one packed batch: the sorted,
@@ -230,13 +420,7 @@ def kmer_sentinel_table_packed(words: torch.Tensor, ends: torch.Tensor,
     rows sentinel-padded to cap, plus a (2,) int64 meta [n_unique,
     n_valid].  Unused slots carry (SENTINEL, 0), so tables of several
     batches concatenate and merge with merge_hash_tables."""
-    uniq, run_starts, n_unique, n_valid = kmer_sorted_runs_packed(
-        words, ends, k, n_true, cap)
-    cap = run_starts.numel()
-    cnt = counts_from_runs(run_starts, n_unique, n_valid, cap)
-    live = torch.arange(cap, device=uniq.device) < n_unique
-    keys = torch.where(live, uniq, SENTINEL)
-    return keys, cnt, torch.stack([n_unique, n_valid])
+    return sentinel_table(kmer_keys(words, ends, k, n_true), cap)
 
 
 def kmer_count_small_packed(words: torch.Tensor, ends: torch.Tensor, k: int,
@@ -272,14 +456,12 @@ def kmer_window_hashes(words: torch.Tensor, ends: torch.Tensor, k: int,
 
 
 def sparse_count_tables(words: torch.Tensor, ends: torch.Tensor, k: int,
-                        n_true: int, cap: int = 1 << 20):
+                        n_true: int, cap: int = KMER_TABLE_CAP):
     """Sorted (hashes uint64, counts int64) host table of one packed chunk:
     the chunk's whole_table (first compacted at `cap` rows), then a fetch
     of its n_unique rows only."""
     uniq, counts, _ = whole_table(kmer_keys(words, ends, k, n_true), cap)
-    n = uniq.numel()
-    rows = fetch_rows(uniq, counts, rows=n)
-    return rows[:n].view(np.uint64), rows[n:]
+    return fetched_table(uniq, counts)
 
 
 def kmer_fullsum_packed(words: torch.Tensor, k: int) -> torch.Tensor:

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .kmer_kernels import SENTINEL, WORD_BASES, kmer_keys
-from .kmers import (counts_from_runs, kmer_hash_limbs, sorted_runs_from_keys,
+from .kmers import (kmer_hash_limbs, sentinel_table, sorted_runs_from_keys,
                     whole_table)
 from .tracks import gc_binned_from_packed, gc_binned_phase
 
@@ -116,12 +116,8 @@ def minimizer_sentinel_table_packed(words: torch.Tensor, ends: torch.Tensor,
     """The minimizer table as fold-ready (keys, counts) int64 rows, the
     unused ones (SENTINEL, 0), plus the (2,) meta: the counterpart of
     pipeline._fold_program's input in the JAX package."""
-    uniq, run_starts, meta = minimizer_table_packed(words, ends, n_true, k,
-                                                    n_kmers, cap)
-    rows = run_starts.numel()
-    cnt = counts_from_runs(run_starts, meta[0], meta[1], rows)
-    live = torch.arange(rows, device=uniq.device) < meta[0]
-    return torch.where(live, uniq, SENTINEL), cnt, meta
+    return sentinel_table(
+        minimizer_keys_masked(words, ends, n_true, k, n_kmers), cap)
 
 
 def minimizer_gc_job_packed(words: torch.Tensor, ends: torch.Tensor, n_true,

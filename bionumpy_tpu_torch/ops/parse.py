@@ -26,8 +26,7 @@ import torch
 
 from .device import bucket_size, resolve_device
 from .kmer_kernels import SENTINEL
-from .kmers import (count_keys, counts_from_runs, kmer_keys, pack_codes,
-                    sorted_runs_from_keys)
+from .kmers import count_keys, kmer_keys, pack_codes, sentinel_table
 
 NEWLINE = 10
 _INVALID = 255  # the encoding LUT's code for a byte outside the alphabet
@@ -137,17 +136,13 @@ def fastq_to_sparse_kmer_table(raw: torch.Tensor, encode_lut: torch.Tensor,
     codes, bad, ends, n_lines, ok = _sequence_codes(raw, encode_lut,
                                                     int(n_true), max_lines)
     ok = ok & (n_lines < max_lines) & (n_lines % 4 == 0) & ~bad.any()
-    keys = _sequence_keys(codes, bad, ends, k)
-    uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
-        keys, min(cap, keys.numel()))
-    cnt = counts_from_runs(run_starts, n_unique, n_valid, run_starts.numel())
-    live = torch.arange(run_starts.numel(), device=raw.device) < n_unique
+    t_keys, cnt, (n_unique, n_valid) = sentinel_table(
+        _sequence_keys(codes, bad, ends, k), cap)
     # the JAX package's table has a row per raw byte up to cap; the live
     # rows (at most the windows, so the bases) fit either way
     rows = min(cap, n)
-    pad = max(rows - run_starts.numel(), 0)
-    table_keys = torch.cat([torch.where(live, uniq, SENTINEL),
-                            uniq.new_full((pad,), SENTINEL)])[:rows]
+    pad = max(rows - t_keys.numel(), 0)
+    table_keys = torch.cat([t_keys, t_keys.new_full((pad,), SENTINEL)])[:rows]
     table_counts = torch.cat([cnt, cnt.new_zeros(pad)])[:rows]
     meta = torch.stack([n_unique, n_valid, n_lines // 4, ok.to(torch.int64),
                         n_unique.new_tensor(codes.numel())])

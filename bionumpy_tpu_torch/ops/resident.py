@@ -19,11 +19,13 @@ its bytes) and `H2D` (the copy, with its device time).
 
 An array of more than MAX_PACKED_BASES bases (whose int32 row ends would
 wrap) is not one batch: device_seqs raises ValueError for it, and
-device_seq_blocks, for callers that scan block by block
-(get_motif_matches), holds it as consecutive blocks of whole rows, each
-a DeviceSeqs of at most MAX_PACKED_BASES bases with its own words and
-int32 ends, all uploaded in one `upload` span.  A smaller array is one
-block, the handle device_seqs makes.
+device_seq_blocks, for callers that work block by block
+(get_motif_matches; count_minimizers and count_kmers past k = 12, whose
+tables ops/kmers.blocked_table builds in passes), holds it as
+consecutive blocks of whole rows, each a DeviceSeqs of at most
+MAX_PACKED_BASES bases with its own words and int32 ends, all uploaded
+in one `upload` span.  A smaller array is one block, the handle
+device_seqs makes.
 
 The cache lives on the array under one attribute, a dict keyed by device
 (and by (device, "blocks") for the blocks), so a handle made for the CPU
@@ -155,6 +157,8 @@ def device_seq_blocks(sequence, device=None) -> list:
     cache = _cache_of(sequence)
     if cache is not None and (dev, "blocks") in cache:
         return cache[(dev, "blocks")]
+    if cache is not None and dev in cache:  # one batch, resident already
+        return [cache[dev]]
     flat, lengths = flat_and_lengths(sequence)
     if len(flat) <= kmers.MAX_PACKED_BASES:
         return [device_seqs(sequence, device)]

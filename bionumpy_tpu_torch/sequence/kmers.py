@@ -216,12 +216,24 @@ def _device_count_kmers_sparse(sequence, k: int,
     """Count k-mers whose label space cannot be enumerated (k up to 31):
     the device sorts the window keys and compacts them to a (hash, count)
     table (ops/kmers.sparse_count_tables), so the copy to the host holds
-    the DISTINCT k-mers only."""
-    from ..ops.kmers import sparse_count_tables
-    from ..ops.resident import device_seqs
+    the DISTINCT k-mers only.  An array that is not one pass
+    (ops/kmers.table_passes: past one block whose sort fits the card) is
+    counted pass by pass over its resident blocks, the passes' tables
+    folded on the card (ops/kmers.blocked_table) at the same first cap.
+    One pass stays with sparse_count_tables, the JAX package's op of one
+    packed batch."""
+    from ..ops.kmers import (KMER_TABLE_CAP, blocked_table, fetched_table,
+                             kmer_keys, sparse_count_tables, table_passes)
+    from ..ops.resident import device_seq_blocks
 
     sequence = _as_ragged(sequence)
-    ds = device_seqs(sequence, device)
-    hashes, counts = sparse_count_tables(ds.words, ds.ends, k, ds.n)
+    passes = table_passes(device_seq_blocks(sequence, device))
+    if len(passes) == 1:
+        ds = passes[0][0]
+        hashes, counts = sparse_count_tables(ds.words, ds.ends, k, ds.n)
+    else:
+        hashes, counts = fetched_table(*blocked_table(
+            passes, lambda words, ends, n: kmer_keys(words, ends, k, n),
+            KMER_TABLE_CAP))
     return SparseEncodedCounts(KmerEncoding(sequence.encoding, k), hashes,
                                counts)

@@ -18,8 +18,9 @@ span, and each table compacted again past its cap counts as
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
-import torch
 
 from ..encoded_array import (EncodedArray, EncodedRaggedArray,
                              as_encoded_array)
@@ -125,7 +126,12 @@ def count_minimizers(sequence, k: int, window_size: int,
     compacted twin of count_encoded(get_minimizers(...)), whose copy to
     the host holds the DISTINCT minimizers only.  A table with more than
     `cap` distinct minimizers is compacted again from the same sort at a
-    cap that fits.
+    cap that fits.  An array past one block whose sort fits the card
+    (ops/kmers.table_passes; a human genome) is counted pass by pass
+    over its resident blocks and the passes' tables are folded on the
+    card into one of `cap` rows (ops/kmers.blocked_table); a `cap` below
+    its distinct minimizers makes the passes run once more at a cap that
+    fits.
 
     Examples
     --------
@@ -135,18 +141,21 @@ def count_minimizers(sequence, k: int, window_size: int,
     >>> sorted(zip(c.alphabet, (int(x) for x in c.counts)))
     [('AC', 2), ('TA', 3)]
     """
-    from ..ops.kmers import whole_table
+    from ..ops.kmers import blocked_table, fetched_table, table_passes
     from ..ops.minimizers import minimizer_keys_masked
-    from ..ops.resident import device_seqs
+    from ..ops.resident import device_seq_blocks
 
     sequence = _as_ragged(_checked(sequence, k, window_size, True))
-    ds = device_seqs(sequence, device)
-    uniq, counts, _ = whole_table(minimizer_keys_masked(
-        ds.words, ds.ends, ds.n, k, window_size - k + 1), cap)
-    n = uniq.numel()
-    rows = fetch_rows(uniq, counts, rows=n)
-    return SparseEncodedCounts(KmerEncoding(sequence.encoding, k),
-                               rows[:n].view(np.uint64), rows[n:])
+    n_kmers = window_size - k + 1
+
+    def keys_of(words, ends, n_true):
+        return minimizer_keys_masked(words, ends, n_true, k, n_kmers)
+
+    return SparseEncodedCounts(
+        KmerEncoding(sequence.encoding, k),
+        *fetched_table(*blocked_table(
+            table_passes(device_seq_blocks(sequence, device)), keys_of,
+            cap)))
 
 
 @call_span
@@ -188,15 +197,18 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
                                       cap: int, bin_size: int,
                                       n_chunks: int, chunk_cap: int,
                                       device=None):
-    """The chunked job: each chunk's upload and table are launched
-    without a wait, the chunk tables merge into one accumulator
-    (ops/kmers.merge_hash_tables), and the host waits twice, for the
-    metas and for one copy of [table rows, every chunk's bins]; the
-    chunks' global-grid bins add at their offsets."""
-    from ..ops.device import bucket_size, flat_and_lengths
-    from ..ops.kmers import merge_hash_tables
-    from ..ops.minimizers import minimizer_sentinel_gc_group
+    """The chunked job: each chunk's upload, GC bins and table are
+    launched without a wait, the chunk tables fold into one accumulator
+    (ops/kmers.fold_tables, one pass a chunk; tables that fit FOLD_ROWS
+    together merge once), and the host waits twice, for the metas and
+    for one copy of [table rows, every chunk's bins]; the chunks'
+    global-grid bins add at their offsets.  The chunks are
+    views of the array, packed and uploaded every call."""
+    from ..ops.device import bucket_size, flat_and_lengths, resolve_device
+    from ..ops.kmers import fold_tables
+    from ..ops.minimizers import minimizer_keys_masked
     from ..ops.resident import device_seqs
+    from ..ops.tracks import gc_binned_phase
 
     flat, lengths = flat_and_lengths(sequence)
     lengths = lengths.astype(np.int64)
@@ -207,35 +219,30 @@ def _count_minimizers_with_gc_chunked(sequence, k: int, window_size: int,
         r = int(np.searchsorted(cum, total * g // n_chunks))
         bounds.append(max(bounds[-1], min(r + 1, len(lengths))))
     bounds.append(len(lengths))
+    starts = np.concatenate([[0], cum])[bounds]
 
     n_kmers = window_size - k + 1
-    tables, metas, gcs, offs = [], [], [], []
-    base = 0
-    for r0, r1 in zip(bounds[:-1], bounds[1:]):
-        if r0 >= r1:
-            continue
+    gcs, offs = [], []
+
+    def chunk_keys(r0, r1, base):
         # the chunk as a view of the flat codes (slicing the ragged array
         # would copy them)
         chunk = EncodedRaggedArray(
             EncodedArray(flat[base: base + int(lengths[r0:r1].sum())],
                          sequence.encoding), lengths[r0:r1])
         ds = device_seqs(chunk, device)
-        keys, cnt, meta, gc = minimizer_sentinel_gc_group(
-            ds.words, ds.ends, ds.n, k, n_kmers,
-            min(chunk_cap, ds.n_positions), bin_size, base % bin_size)
-        tables.append((keys, cnt))
-        metas.append(meta)
-        gcs.append(gc)
+        gcs.append(gc_binned_phase(ds.words, ds.n, bin_size,
+                                   base % bin_size))
         offs.append(base // bin_size)
-        base += ds.n
-    assert base == total
+        return minimizer_keys_masked(ds.words, ds.ends, ds.n, k, n_kmers)
 
-    acc_keys, acc_cnt, acc_nu = merge_hash_tables(
-        torch.cat([t[0] for t in tables]), torch.cat([t[1] for t in tables]),
-        cap)
-    with stage("D2H-meta", device=acc_nu.is_cuda):
-        probe = torch.cat([m.to(torch.int64) for m in
-                           (*metas, acc_nu.reshape(1))]).cpu().numpy()
+    acc_keys, acc_cnt, probe = fold_tables(
+        [(chunk_cap, functools.partial(chunk_keys, r0, r1, int(base)))
+         for r0, r1, base in zip(bounds[:-1], bounds[1:], starts)
+         if r0 < r1],
+        cap, chunk_cap, resolve_device(device).type == "cuda")
+    with stage("D2H-meta", device=probe.is_cuda):
+        probe = probe.cpu().numpy()
     max_unique, nu = int(probe[:-1:2].max()), int(probe[-1])
     if max_unique > chunk_cap:
         # a chunk's table was truncated: one rerun at a cap that fits

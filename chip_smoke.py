@@ -175,6 +175,17 @@ each of which raises on failure:
                under one seed to those with device="cpu" scores; then
                simulate_sequences -> get_reverse_complement ->
                count_kmers on the card against the CPU
+ 22. table-passes  a table's passes over two resident blocks of ~0.56 G
+               seeded bases each: kernel 1 over every pass's words (a
+               slice from the word of the pass's first base, a first row
+               end inside that word) against its plain version on the
+               same words and ends (k=31 and k=15, two passes) and, at
+               k=31, against the whole block's keys at the pass's
+               positions; then blocked_table of the minimizers (k=15,
+               24-base windows) over both blocks: one kmer_keys launch a
+               pass, every window counted once, the keys strictly rising;
+               prints the passes, their offsets, the folds and the peak
+               device memory
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -2988,6 +2999,115 @@ def phase_simulate(dev):
             "kmer_keys_kernel": kk.LAUNCHES["kmer_keys_kernel"]}
 
 
+def phase_table_passes(dev):
+    """A table's passes at full size (ops/kmers.table_passes over two
+    resident blocks, each of ~0.56 G seeded bases in rows of up to 60 M):
+    kernel 1 over each pass's words (ops/kmers._pass_keys) equals its
+    plain version on the same words and ends, and the whole block's keys
+    at the pass's positions, with the sentinel before and after them;
+    blocked_table of the minimizers (k=15, 24-base windows) launches
+    kmer_keys once a pass and counts every window once.  Returns the
+    launches of blocked_table."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import instrument
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import kmers, resident
+    from bionumpy_tpu_torch.ops.minimizers import minimizer_keys_masked
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    blocks, all_lengths = [], []
+    for _ in range(2):
+        lengths = rng.integers(1, 60_000_000, 19)
+        lengths[3] = 20  # a row shorter than a window
+        flat = rng.integers(0, 4, int(lengths.sum()), dtype=np.uint8)
+        blocks.append(resident.device_seqs(bt.EncodedRaggedArray(
+            bt.EncodedArray(flat, bt.DNAEncoding), lengths), dev))
+        all_lengths.append(lengths)
+        del flat
+    passes = kmers.table_passes(blocks)
+    offsets = [p[3] % kk.WORD_BASES for p in passes]
+    log(f"[table-passes] {sum(ds.n for ds in blocks)} bases in "
+        f"{len(blocks)} blocks (made in {time.perf_counter() - t0:.1f} s); "
+        f"{len(passes)} passes of {[p[4] - p[3] for p in passes]} bases, "
+        f"first bases at {offsets} mod {kk.WORD_BASES}")
+    if len(passes) < 2 * len(blocks) or not any(offsets):
+        raise AssertionError("the blocks make too few passes, or none "
+                             "starting inside a word")
+
+    def raw_keys(k, seen):
+        def keys_of(words, ends, n_true):
+            keys = kk.kmer_keys(words, ends, k, n_true)
+            seen.append((words, ends, n_true, keys.clone()))
+            return keys
+        return keys_of
+
+    plain_checked = 0
+    for ds in blocks:
+        whole = kk.kmer_keys(ds.words, ds.ends, K, ds.n)
+        for p in (p for p in passes if p[0] is ds):
+            seen = []
+            got = kmers._pass_keys(p, raw_keys(K, seen))
+            words, ends, n_true, raw = seen[0]
+            off, size = p[3] % kk.WORD_BASES, p[4] - p[3]
+            if not (torch.equal(got[off: off + size], whole[p[3]: p[4]])
+                    and bool((got[:off] == SENTINEL).all())
+                    and bool((got[off + size:] == SENTINEL).all())):
+                raise AssertionError(f"the keys of pass {p[1:]} differ "
+                                     f"from the whole block's")
+            if off and plain_checked < 2:
+                for k in (K, 15):
+                    if k != K:
+                        seen = []
+                        kmers._pass_keys(p, raw_keys(k, seen))
+                        words, ends, n_true, raw = seen[0]
+                    ref = kk.kmer_keys_plain(words, ends, k, n_true)
+                    if not torch.equal(raw, ref):
+                        raise AssertionError(
+                            f"kmer_keys_kernel differs from its plain "
+                            f"version over pass {p[1:]} at "
+                            f"{int((raw != ref).sum())} positions (k={k})")
+                    del ref
+                plain_checked += 1
+            del got, raw, seen
+        del whole
+    if plain_checked < 2:
+        raise AssertionError("no two passes starting inside a word")
+    log(f"[table-passes] exact: every pass's keys equal the whole "
+        f"block's at k={K}, and kernel 1 its plain version over "
+        f"{plain_checked} passes starting inside a word (k={K}, 15)")
+
+    def min_keys(words, ends, n_true):
+        return minimizer_keys_masked(words, ends, n_true, 15, 10)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the checks' blocks back before the folds
+    torch.cuda.reset_peak_memory_stats(dev)
+    kk.reset_launches()
+    instrument.reset()
+    t0 = time.perf_counter()
+    keys, counts = kmers.blocked_table(passes, min_keys, 1 << 28)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kk.LAUNCHES)
+    rep = instrument.report()
+    windows = sum(int(np.maximum(n - 23, 0).sum()) for n in all_lengths)
+    if launches["kmer_keys_kernel"] != len(passes):
+        raise AssertionError(f"{launches['kmer_keys_kernel']} kmer_keys "
+                             f"launches for {len(passes)} passes")
+    if int(counts.sum()) != windows or not bool((keys[1:] > keys[:-1]).all()):
+        raise AssertionError("the folded minimizer table does not count "
+                             "every window once in rising keys")
+    log("[table-passes] " + json.dumps({
+        "passes": len(passes), "rows": keys.numel(), "windows": windows,
+        "folds": rep["table-fold"]["calls"],
+        "fold_rows": rep["table-fold"]["rows"],
+        "cap_reruns": rep.get("cap-rerun", {}).get("calls", 0),
+        "wall_s": wall, "launches": launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "gpu": gpu_line()}))
+    return launches
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3061,6 +3181,7 @@ def main() -> int:
     ops_launches = run_phase("kmer-ops", phase_kmer_ops, dev,
                              batch_inputs(SEED))
     sim_launches = run_phase("simulate", phase_simulate, dev)
+    table_launches = run_phase("table-passes", phase_table_passes, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],
@@ -3079,14 +3200,15 @@ def main() -> int:
         "genomic": genomic_launches["kmer_keys_kernel"],
         **{f"{name}_jobs": n["kmer_keys_kernel"]
            for name, n in mesh_launches.items()},
-        "simulate": sim_launches["kmer_keys_kernel"]}
+        "simulate": sim_launches["kmer_keys_kernel"],
+        "table_passes": table_launches["kmer_keys_kernel"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],
         "kmer_ops": ops_launches["kmer_fullsum_kernel"],
         "intervals": interval_launches["kmer_fullsum_kernel"],
         "genomic": genomic_launches["kmer_fullsum_kernel"],
-        "mesh": 0, "simulate": 0}
+        "mesh": 0, "simulate": 0, "table_passes": 0}
     def pwm(n):  # both modes of kernel 3
         return n["pwm_scores_kernel"] + n.get("pwm_scores_kernel.match", 0)
     rows[2]["launches"] = pwm(motif_launches)

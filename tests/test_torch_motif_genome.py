@@ -323,8 +323,14 @@ def test_tables_refuse_what_the_scan_takes_in_blocks(monkeypatch):
         int(lengths[r0:r1].sum())
         for r0, r1 in resident.row_blocks(lengths, 7000)]
     assert max(b.n for b in blocks) <= 7000
-    with pytest.raises(ValueError, match="int32"):
-        bt.count_kmers(seqs, 31, device="cpu")
+    # count_kmers takes the same blocks in passes (ops/kmers.blocked_table);
+    # count_minimizers_with_gc in one batch still refuses them
+    table = bt.count_kmers(seqs, 31, device="cpu")
+    keys, counts = R.kmer_table(flat, lengths, 31, "cpu")
+    np.testing.assert_array_equal(table.label_codes.view(np.int64),
+                                  keys.numpy())
+    np.testing.assert_array_equal(table.counts, counts.numpy())
+    assert resident.TRANSFER_COUNT == len(blocks)  # the blocks, reused
     with pytest.raises(ValueError, match="int32"):
         bt.count_minimizers_with_gc(seqs, 21, 30, device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
