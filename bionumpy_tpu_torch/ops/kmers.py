@@ -5,7 +5,8 @@ uint32 limbs (the TPU has no int64).  Invalid windows carry the sentinel
 2^63-1, above every k <= 31 hash, so a plain sort pushes them past every
 real key.  A batch is counted by: kmer_keys (ops/kmer_kernels.py) ->
 sort and run detection (sort_runs, the one sort of every table of the
-port, merges included) -> compaction of the run heads to the front of a
+port, merge_hash_tables' merges included; the folds' merge kernel sorts
+nothing) -> compaction of the run heads to the front of a
 `cap`-row table (compact_runs) -> counts from the run-start differences.
 
 whole_table owns the size policy of a table that its caller fetches
@@ -14,8 +15,9 @@ the same sort where `cap` was too small.  blocked_table owns it for an
 array's resident blocks (ops/resident.device_seq_blocks): one block
 whose sort fits the card is one pass, whole_table; a larger array is
 cut into passes of whole rows (table_passes) whose tables are folded on
-the card into one accumulator (fold_tables, over merge_hash_tables),
-and the host waits once for every pass's meta.  Everything else here stays
+the card into one accumulator (fold_tables: the sorted tables merged by
+the merge kernel of ops/table_kernels, no sort), and the host waits once
+for every pass's meta.  Everything else here stays
 asynchronous on the card: no `.item()`, no `nonzero`, no shape that
 depends on the data.  Counts are device scalars and int64 tensors until
 the caller fetches them.
@@ -39,6 +41,7 @@ from .device import (bucket_size, distance_to_row_end, fetch_rows,
                      resolve_device)
 from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
                            limbs_at, window_limbs_plain)
+from .table_kernels import merge_tables
 
 _M32 = 0xFFFFFFFF
 # the most bases one packed batch holds: its row ends are int32
@@ -247,26 +250,28 @@ def fold_tables(key_passes, cap: int, pass_cap: int, on_card: bool):
     span: device time if `on_card`, rows the keys).  The tables wait
     until the rows held, the accumulator's included, would pass
     FOLD_ROWS with the next table; then they merge, with the accumulator
-    once there is one, into an accumulator of `cap` rows
-    (merge_hash_tables, the `table-fold` span: device time, rows those
-    merged, padding included).  What waits at the end merges last; a
+    once there is one, into an accumulator of `cap` rows: every one is a
+    sorted sentinel table, so they merge without a sort
+    (table_kernels.merge_tables, the kernel on the card, merge_hash_tables
+    over their concatenation on the CPU; the `table-fold` span: device
+    time, rows those merged, padding included; the `fold-merge` counter,
+    rows the tables merged).  What waits at the end merges last; a
     single table is the accumulator as it is.  Counts once as
     `table-passes`, rows the passes.  Returns (keys, counts, probe): the
     accumulator and one int64 device tensor of each pass's [n_unique,
     n_valid] and then the accumulator's n_unique, at most its rows;
-    `cap` or more there means the fold cut a total."""
+    `cap` or more there means the fold dropped keys past `cap`."""
     metas, held, acc = [], [], None
 
     def fold():
         nonlocal acc
-        if acc is not None:
-            held.insert(0, acc[:2])
-        keys_in = torch.cat([t[0] for t in held])
-        cnt_in = torch.cat([t[1] for t in held])
+        tables = held[:] if acc is None else [acc[:2], *held]
         acc = None
-        held.clear()  # freed before the merge's sort
-        with stage("table-fold", rows=keys_in.numel(), device=on_card):
-            acc = merge_hash_tables(keys_in, cnt_in, cap)
+        held.clear()
+        with stage("table-fold", rows=sum(t[0].numel() for t in tables),
+                   device=on_card):
+            acc = merge_tables(tables, cap)
+            add("fold-merge", 0.0, rows=len(tables))
 
     for rows, make_keys in key_passes:
         held_rows = sum(t[0].numel() for t in held)

@@ -26,7 +26,7 @@ each of which raises on failure:
 
   1. device    a CUDA card is required; prints nvidia-smi's name and
                power limit
-  2. build     the host library (g++) and the two CUDA libraries (nvcc)
+  2. build     the host library (g++) and the three CUDA libraries (nvcc)
                from the sources in the checkout, all compilers at once;
                prints each library's build time and each kernel's
                registers, shared memory and spills (ptxas)
@@ -184,8 +184,17 @@ each of which raises on failure:
                positions; then blocked_table of the minimizers (k=15,
                24-base windows) over both blocks: one kmer_keys launch a
                pass, every window counted once, the keys strictly rising;
-               prints the passes, their offsets, the folds and the peak
-               device memory
+               prints the passes, their offsets, the folds, their merges
+               (each through the merge kernel, no sort inside a fold)
+               and the peak device memory
+ 23. table-merge  the folds' merge kernel (ops/table_kernels) at the
+               minimizer index's fold shape, a 2^29-row accumulator with
+               ~2^28 live rows and a 2^28-row pass table, against its
+               plain version (merge_hash_tables over the concatenation),
+               bit for bit; both timed by CUDA events, the kernel also
+               by the profiler per kernel, beside the byte floor; then
+               fold_tables over three passes with its fold-merge count
+               and the kernel's launches
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -512,7 +521,7 @@ def ptxas_report(text: str) -> str:
 def phase_build():
     from bionumpy_tpu_torch import native
     from bionumpy_tpu_torch.ops import _build, kmer_kernels
-    from bionumpy_tpu_torch.ops import pwm_kernels
+    from bionumpy_tpu_torch.ops import pwm_kernels, table_kernels
 
     def timed(build):
         t0 = time.perf_counter()
@@ -520,17 +529,19 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         host = pool.submit(native._load)
         cuda = {"kmers": pool.submit(timed, kmer_kernels.build),
-                "pwm": pool.submit(timed, pwm_kernels.build)}
+                "pwm": pool.submit(timed, pwm_kernels.build),
+                "tables": pool.submit(timed, table_kernels.build)}
         if host.result() is None:
             raise RuntimeError("the host library did not build")
         seconds = {name: lib.result() for name, lib in cuda.items()}
-    log(f"[build] host + 2 CUDA libraries in "
+    log(f"[build] host + 3 CUDA libraries in "
         f"{time.perf_counter() - t0:.1f} s (nvcc kmers "
-        f"{seconds['kmers']:.1f} s, pwm {seconds['pwm']:.1f} s)")
-    for name in ("kmers", "pwm"):
+        f"{seconds['kmers']:.1f} s, pwm {seconds['pwm']:.1f} s, tables "
+        f"{seconds['tables']:.1f} s)")
+    for name in ("kmers", "pwm", "tables"):
         log(f"[build] ptxas {name}: "
             f"{ptxas_report(_build.LOGS.get(name, '')) or 'library current'}")
 
@@ -3012,6 +3023,7 @@ def phase_table_passes(dev):
     from bionumpy_tpu_torch import instrument
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     from bionumpy_tpu_torch.ops import kmers, resident
+    from bionumpy_tpu_torch.ops import table_kernels as tk
     from bionumpy_tpu_torch.ops.minimizers import minimizer_keys_masked
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 22)
@@ -3083,6 +3095,7 @@ def phase_table_passes(dev):
     torch.cuda.empty_cache()  # the checks' blocks back before the folds
     torch.cuda.reset_peak_memory_stats(dev)
     kk.reset_launches()
+    tk.reset_launches()
     instrument.reset()
     t0 = time.perf_counter()
     keys, counts = kmers.blocked_table(passes, min_keys, 1 << 28)
@@ -3097,15 +3110,150 @@ def phase_table_passes(dev):
     if int(counts.sum()) != windows or not bool((keys[1:] > keys[:-1]).all()):
         raise AssertionError("the folded minimizer table does not count "
                              "every window once in rising keys")
+    merges = rep["fold-merge"]
+    if merges["calls"] != rep["table-fold"]["calls"] or \
+            tk.LAUNCHES["merge_tables_kernel"] != \
+            merges["rows"] - merges["calls"] or any(
+                s["name"] == "sort" and s["parent"] == "table-fold"
+                for s in instrument.spans()):
+        raise AssertionError(f"a fold did not take the merge kernel: "
+                             f"{merges}, {rep['table-fold']}, {tk.LAUNCHES}")
     log("[table-passes] " + json.dumps({
         "passes": len(passes), "rows": keys.numel(), "windows": windows,
         "folds": rep["table-fold"]["calls"],
         "fold_rows": rep["table-fold"]["rows"],
+        "fold_device_s": rep["table-fold"].get("device_seconds"),
+        "fold_merges": merges["calls"], "tables_merged": merges["rows"],
+        "merge_launches": tk.LAUNCHES["merge_tables_kernel"],
         "cap_reruns": rep.get("cap-rerun", {}).get("calls", 0),
         "wall_s": wall, "launches": launches,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "gpu": gpu_line()}))
     return launches
+
+
+def phase_table_merge(dev):
+    """The folds' merge kernel at the minimizer index's fold shape: a
+    2^29-row accumulator with ~2^28 live keys and a 2^28-row pass table
+    with ~0.6 of its rows live, keys below 2^30 (the cell's 30-bit
+    hashes), seeded counts.  The kernel equals its plain version
+    (merge_hash_tables over the concatenation, the fold before the
+    kernel) bit for bit; each is timed by CUDA events, the kernel also
+    by the profiler kernel by kernel, beside the byte floor (the live
+    rows read once and the 2^29 output rows written once) and the floor
+    over every input row; then fold_tables over three passes of 2^24
+    keys gives its fold-merge count and the kernel's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bionumpy_tpu_torch import instrument
+    from bionumpy_tpu_torch.ops import kmers, table_kernels as tk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    cap = 1 << 29
+
+    def table(rows, share):
+        live = torch.nonzero(torch.rand(1 << 30, generator=gen, device=dev)
+                             < share).squeeze(1)[:rows]
+        keys = torch.full((rows,), SENTINEL, dtype=torch.int64, device=dev)
+        counts = torch.zeros(rows, dtype=torch.int64, device=dev)
+        keys[:live.numel()] = live
+        counts[:live.numel()] = torch.randint(1, 150, (live.numel(),),
+                                              generator=gen, device=dev)
+        return (keys, counts), live.numel()
+
+    acc, live_acc = table(cap, 0.25)
+    one, live_one = table(1 << 28, 0.15)
+    tables = [acc, one]
+    rows_in = cap + (1 << 28)
+    floor_s = ((live_acc + live_one) * 16 + cap * 16) / MEM_BYTES_PER_S
+    floor_all_s = (rows_in + cap) * 16 / MEM_BYTES_PER_S
+
+    def event_ms(fn, runs):
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del out
+        return float(np.median(times)), times
+
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    got = tk.merge_tables(tables, cap)  # the first call builds the library
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel_ms, kernel_runs = event_ms(lambda: tk.merge_tables(tables, cap), 7)
+    kernel_peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tk.merge_tables(tables, cap)
+        torch.cuda.synchronize()
+    by_kernel = {e.key: round(getattr(e, "self_device_time_total",
+                                      getattr(e, "self_cuda_time_total", 0))
+                              / 3 / 1e3, 4)
+                 for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) > 0}
+    launches = tk.LAUNCHES["merge_tables_kernel"]
+    # the plain version as the fold ran it: the tables concatenated and
+    # freed before the merge_hash_tables sort, which then fits the card;
+    # the kernel's table waits on the host for the comparison
+    got = [t.cpu() for t in got]
+    keys_in = torch.cat([acc[0], one[0]])
+    cnt_in = torch.cat([acc[1], one[1]])
+    del tables, acc, one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_ms, plain_runs = event_ms(
+        lambda: kmers.merge_hash_tables(keys_in, cnt_in, cap), 2)
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    want = kmers.merge_hash_tables(keys_in, cnt_in, cap)
+    del keys_in, cnt_in
+    equal = all(torch.equal(g, w.cpu()) for g, w in zip(got, want))
+    n_unique = int(got[2])
+    del got, want
+    if not equal:
+        raise AssertionError("merge_tables_kernel differs from its plain "
+                             "version at the fold's shape")
+
+    def passes():
+        g = torch.Generator(device=dev).manual_seed(SEED + 24)
+        return [(1 << 24, lambda: torch.randint(0, 1 << 30, (1 << 24,),
+                                                generator=g, device=dev))
+                for _ in range(3)]
+
+    tk.reset_launches()
+    instrument.reset()
+    kmers.fold_tables(passes(), 1 << 26, 1 << 24, True)
+    torch.cuda.synchronize()
+    rep = instrument.report()
+    if rep["fold-merge"]["calls"] != rep["table-fold"]["calls"] or \
+            tk.LAUNCHES["merge_tables_kernel"] != rep["fold-merge"]["rows"] - 1:
+        raise AssertionError(f"the fold did not take the merge kernel: "
+                             f"{rep}, {tk.LAUNCHES}")
+    log("[table-merge] " + json.dumps({
+        "rows_in": rows_in, "live_rows_in": live_acc + live_one,
+        "out_rows": cap, "n_unique": n_unique, "equal_to_plain": equal,
+        "kernel_ms": round(kernel_ms, 4),
+        "kernel_ms_runs": [round(t, 4) for t in kernel_runs],
+        "device_ms_by_kernel": by_kernel,
+        "byte_floor_ms": round(floor_s * 1e3, 4),
+        "floor_all_rows_ms": round(floor_all_s * 1e3, 4),
+        "of_floor": round(kernel_ms / (floor_s * 1e3), 3),
+        "plain_ms": round(plain_ms, 2),
+        "plain_ms_runs": [round(t, 2) for t in plain_runs],
+        "first_call_s": round(first_s, 3), "launches": launches,
+        "peak_device_bytes": {"kernel": kernel_peak, "plain": plain_peak},
+        "fold": {"table_folds": rep["table-fold"]["calls"],
+                 "fold_merges": rep["fold-merge"]["calls"],
+                 "tables_merged": rep["fold-merge"]["rows"],
+                 "merge_launches": tk.LAUNCHES["merge_tables_kernel"]},
+        "gpu": gpu_line()}))
 
 
 def run_phase(name: str, phase, *args):
@@ -3182,6 +3330,7 @@ def main() -> int:
                              batch_inputs(SEED))
     sim_launches = run_phase("simulate", phase_simulate, dev)
     table_launches = run_phase("table-passes", phase_table_passes, dev)
+    run_phase("table-merge", phase_table_merge, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],

@@ -2,8 +2,11 @@
 (ops/kmers.blocked_table): the folded table of count_minimizers and of
 count_kmers equals the same call as one pass, at a size whose blocks
 and passes are forced small enough to make 3 or more passes; the spans,
-the counter and kernel 1's launches are read just after.  This file
-imports neither JAX nor the JAX package:
+the counter and kernel 1's launches are read just after.  The folds'
+merge kernel (ops/table_kernels) equals its plain version bit for bit
+at sizes that cross many tiles, and the chunked GC job, which folds
+through it, equals the same job in one chunk.  This file imports
+neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_table_passes_card.py
@@ -15,6 +18,9 @@ import torch
 import bionumpy_tpu_torch as bt
 from bionumpy_tpu_torch import instrument
 from bionumpy_tpu_torch.ops import kmer_kernels, kmers, resident
+from bionumpy_tpu_torch.ops import table_kernels
+
+S = table_kernels.SENTINEL
 
 
 @pytest.fixture
@@ -85,3 +91,147 @@ def test_folded_table_on_card_equals_one_pass(cuda, monkeypatch, fn, k, w,
     assert rep["table-fold"]["device_seconds"] > 0
     assert rep["table-pass"]["device_seconds"] > 0
     assert rep["D2H"]["rows"] == len(got.counts)
+
+
+def _table(keys, rows, gen):
+    """A sentinel table on the keys' device: the sorted unique `keys`
+    (the first `rows`), seeded counts of 1-99, then (S, 0) rows."""
+    keys = torch.unique(keys)[:rows]
+    k = torch.full((rows,), S, dtype=torch.int64, device=keys.device)
+    c = torch.zeros(rows, dtype=torch.int64, device=keys.device)
+    k[:keys.numel()] = keys
+    c[:keys.numel()] = torch.randint(1, 100, (keys.numel(),), generator=gen,
+                                     device=keys.device)
+    return k, c
+
+
+def _merge_case(name, dev):
+    """(tables, cap) of one named case on the card, across many tiles of
+    2048 merged rows."""
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+
+    def rand(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
+
+    def ar(*a):
+        return torch.arange(*a, device=dev)
+
+    big, inf = (1 << 62) - 1, 1 << 40
+    if name == "disjoint":
+        return [_table(rand(300_000, 1 << 30), 300_000, gen),
+                _table(rand(200_000, 1 << 30) + (1 << 31), 250_000, gen)], inf
+    if name == "interleaved":
+        return [_table(ar(0, 2_000_000, 2), 1_000_000, gen),
+                _table(ar(1, 2_000_000, 2), 1_100_000, gen)], inf
+    if name == "identical":
+        keys = rand(500_000, 1 << 40)
+        return [_table(keys, 600_000, gen), _table(keys, 500_000, gen)], inf
+    if name == "straddle":
+        # one key below the pairs puts each pair's A row last in a tile
+        # and its B row first in the next
+        pairs = ar(1, 400_001) * 2
+        return [_table(torch.cat([ar(1), pairs]), 400_001, gen),
+                _table(pairs, 400_000, gen)], inf
+    if name == "extremes":
+        edge = torch.tensor([0, big - 2, big], device=dev)
+        return [_table(torch.cat([edge, rand(90_000, big)]), 100_000, gen),
+                _table(torch.cat([edge - 1, rand(90_000, big)]).clamp(min=0),
+                       95_000, gen)], inf
+    if name == "all-padding":
+        return [_table(ar(0), 100_000, gen),
+                _table(rand(70_000, 1 << 20), 80_000, gen),
+                _table(ar(0), 30_000, gen)], inf
+    if name == "empty":
+        return [_table(ar(0), 0, gen), _table(rand(70_000, 1 << 20), 80_000,
+                                              gen)], inf
+    if name == "truncated":
+        tables = []
+        for rows in (60_000, 45_000):
+            k, c, meta = kmers.sentinel_table(rand(4 * rows, 1 << 24), rows)
+            assert int(meta[0]) > rows and bool((k != S).all())
+            tables.append((k, c))
+        return tables, inf
+    if name in ("cap", "cap+1"):
+        a = _table(ar(0, 400_000, 2), 250_000, gen)  # 200,000 keys
+        b = _table(ar(0, 200_000, 5), 50_000, gen)   # 40,000, 20,000 new
+        return [a, b], 220_000 - (name == "cap+1")
+    if name == "half-padding":  # ~2^26-row inputs, half of them padding
+        return [_table(rand(1 << 25, 1 << 30), 1 << 26, gen),
+                _table(rand(1 << 25, 1 << 30), 1 << 26, gen)], 1 << 27
+    n = {"two": 2, "three": 3, "four": 4}[name]
+    return [_table(rand(int(rows * 0.7), 3_000_000), rows, gen)
+            for rows in (900_000, 300_000, 1_200_000, 50_000)[:n]], 2_500_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "disjoint", "interleaved", "identical", "straddle", "extremes",
+    "all-padding", "empty", "truncated", "cap", "cap+1", "two", "three",
+    "four", "half-padding"])
+def test_merge_kernel_equals_its_plain_version(cuda, name):
+    tables, cap = _merge_case(name, cuda)
+    table_kernels.reset_launches()
+    keys, counts, n_unique = table_kernels.merge_tables(tables, cap)
+    torch.cuda.synchronize()
+    assert table_kernels.LAUNCHES["merge_tables_kernel"] == len(tables) - 1
+    want_k, want_c, want_n = table_kernels.merge_tables_plain(tables, cap)
+    assert keys.dtype == counts.dtype == n_unique.dtype == torch.int64
+    assert keys.device == counts.device == n_unique.device == tables[0][0].device
+    assert n_unique.dim() == 0 and int(n_unique) == int(want_n)
+    assert torch.equal(keys, want_k)
+    whole = table_kernels.merge_tables_plain(tables, 1 << 40)
+    distinct = int(whole[2])
+    if distinct > cap:
+        # past cap the kernel keeps the last total whole; the plain
+        # version cuts it
+        assert name == "cap+1" and int(n_unique) == cap
+        assert torch.equal(counts[:-1], want_c[:-1])
+        assert int(counts[-1]) == int(whole[1][cap - 1])
+    else:
+        assert torch.equal(counts, want_c)
+    if name == "cap":
+        assert distinct == cap == int(n_unique)
+
+
+@pytest.mark.cuda
+def test_folds_on_card_merge_without_a_sort(cuda, monkeypatch):
+    """count_minimizers with small passes forced: the table of one pass,
+    every fold through the merge kernel (one launch per table merged
+    into the accumulator) and no sort inside a `table-fold` span."""
+    flat, lengths = _genome(39)
+    whole = _count(_seqs(flat, lengths), "count_minimizers", 15, 24, cuda)
+    monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 1 << 23)
+    monkeypatch.setattr(kmers, "TABLE_PASS_POSITIONS", 1 << 21)
+    monkeypatch.setattr(kmers, "FOLD_ROWS", 3 << 21)  # two folds or more
+    table_kernels.reset_launches()
+    instrument.reset()
+    got = _count(_seqs(flat, lengths), "count_minimizers", 15, 24, cuda)
+    rep = instrument.report()
+    np.testing.assert_array_equal(got.label_codes, whole.label_codes)
+    np.testing.assert_array_equal(got.counts, whole.counts)
+    folds = rep["table-fold"]["calls"]
+    assert folds >= 2 and rep["fold-merge"]["calls"] == folds
+    assert table_kernels.LAUNCHES["merge_tables_kernel"] == \
+        rep["fold-merge"]["rows"] - folds > 0
+    assert not [s for s in instrument.spans()
+                if s["name"] == "sort" and s["parent"] == "table-fold"]
+    assert rep["sort"]["calls"] == rep["table-pass"]["calls"]
+
+
+@pytest.mark.cuda
+def test_chunked_gc_job_on_card_equals_one_chunk(cuda):
+    flat, lengths = _genome(41)
+    seqs = _seqs(flat, lengths)
+    kw = dict(cap=1 << 24, bin_size=1000, device=cuda)
+    one, gc_one = bt.count_minimizers_with_gc(seqs, 15, 24, **kw)
+    table_kernels.reset_launches()
+    instrument.reset()
+    four, gc_four = bt.count_minimizers_with_gc(seqs, 15, 24, n_chunks=4,
+                                                **kw)
+    rep = instrument.report()
+    np.testing.assert_array_equal(four.label_codes, one.label_codes)
+    np.testing.assert_array_equal(four.counts, one.counts)
+    np.testing.assert_array_equal(gc_four, gc_one)
+    assert rep["fold-merge"]["calls"] == rep["table-fold"]["calls"] >= 1
+    assert table_kernels.LAUNCHES["merge_tables_kernel"] == \
+        rep["fold-merge"]["rows"] - rep["fold-merge"]["calls"]
