@@ -70,7 +70,8 @@ from .pipeline import (AccOverflow, binned_pileup_bed, count_kmers_fastq,
                        count_minimizers_fastq, get_motif_matches_fastq)
 from .sequence.count_encoded import (EncodedCounts, SparseEncodedCounts,
                                      count_encoded)
-from .sequence.kmers import KmerEncoder, count_kmers, get_kmers
+from .sequence.kmers import (KmerEncoder, count_kmers, get_kmers,
+                             kmer_spectrum)
 from .sequence.minimizers import (Minimizers, count_minimizers,
                                   count_minimizers_with_gc, get_minimizers)
 from .sequence.position_weight_matrix import (PWM, PositionWeightMatrix,
@@ -125,6 +126,7 @@ __all__ = ["count_kmers_fastq", "kmer_checksum_streamed",
            "get_motif_matches_fastq", "PWM", "read_jaspar_matrix",
            "EncodedArray", "EncodedRaggedArray", "as_encoded_array",
            "change_encoding", "DNAEncoding", "get_kmers", "count_kmers",
+           "kmer_spectrum",
            "EncodedCounts", "SparseEncodedCounts", "count_encoded",
            "get_minimizers", "count_minimizers", "count_minimizers_with_gc",
            "Minimizers", "get_motif_scores", "get_motif_matches",

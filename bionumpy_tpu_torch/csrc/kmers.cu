@@ -27,6 +27,16 @@
 // its bound, against 0.094 ms for fill_ over the same 268 MB: what is left
 // is reading the words and the row ends inside the write stream.
 //
+// Its canonical mode (the template's Canonical = true, a launch of its own)
+// keys each valid window by the lesser of its hash and the hash of its
+// reverse complement, whose codes are 3 - c in reverse order.  The
+// complement of the window's 2k bits is ~key; __brevll reverses all 64
+// bits, which puts base j's 2-bit group at group 31 - j with its two bits
+// swapped; one pair swap restores them and a shift by 64 - 2k brings group
+// k-1-j down to j, pushing the complemented bits above 2k out.  So no
+// second row walk and no second read of the words.  The forward instance
+// compiles to the code it had before the mode existed.
+//
 // kmer_fullsum_kernel replaces the Pallas _fullsum_kernel
 // (bionumpy_tpu/ops/pallas_kmers.py:63): sums mod 2^32 of the low and the
 // high 32 bits of every window hash, validity ignored.  It writes 8 bytes
@@ -75,12 +85,40 @@ __device__ __forceinline__ long long window_key(const packed::Words3& w,
     return (long long)(((unsigned long long)hi << 32) | lo);
 }
 
+// Bits 2j and 2j+1 of x exchanged for every j.
+__device__ __forceinline__ unsigned long long swap_pairs(
+        unsigned long long x) {
+    return ((x >> 1) & 0x5555555555555555ull) |
+           ((x & 0x5555555555555555ull) << 1);
+}
+
+// The lesser of the k-mer key `key` (2k bits, base j in bits 2j..2j+1) and
+// the key of its reverse complement.
+__device__ __forceinline__ long long canonical_key(long long key,
+                                                   unsigned rc_shift) {
+    const unsigned long long rc =
+        swap_pairs(__brevll(~(unsigned long long)key)) >> rc_shift;
+    return min(key, (long long)rc);
+}
+
+// The window's sort key: its hash, or in canonical mode the canonical one.
+template <bool Canonical>
+__device__ __forceinline__ long long window_sort_key(
+        const packed::Words3& w, unsigned bit, uint32_t mlo, uint32_t mhi,
+        unsigned rc_shift) {
+    const long long key = window_key(w, bit, mlo, mhi);
+    if constexpr (Canonical) return canonical_key(key, rc_shift);
+    return key;
+}
+
+template <bool Canonical>
 __global__ void __launch_bounds__(kThreads)
 kmer_keys_kernel(const uint32_t* __restrict__ words,
                  const int32_t* __restrict__ ends, int n_rows,
                  long long n_positions, long long n_true, int k,
                  unsigned long long mask, long long* __restrict__ keys) {
     const int lane = threadIdx.x & 31;
+    const unsigned rc_shift = 64u - 2u * (unsigned)k;
     const int last = n_rows - 1;
     long long limit = n_rows > 0 ? (long long)__ldg(ends + last) : 0;
     if (n_true < limit) limit = n_true;
@@ -117,7 +155,9 @@ kmer_keys_kernel(const uint32_t* __restrict__ words,
                     r = row_after(ends, last, r, p);
                     e = __ldg(ends + r);
                 }
-                if (e - p >= k) key0 = window_key(w, bit, mlo, mhi);
+                if (e - p >= k)
+                    key0 = window_sort_key<Canonical>(w, bit, mlo, mhi,
+                                                      rc_shift);
             }
             if (p + 1 < limit) {
                 if (e <= p + 1) {
@@ -125,7 +165,8 @@ kmer_keys_kernel(const uint32_t* __restrict__ words,
                     e = __ldg(ends + r);
                 }
                 if (e - (p + 1) >= k)
-                    key1 = window_key(w, bit + 2, mlo, mhi);
+                    key1 = window_sort_key<Canonical>(w, bit + 2, mlo, mhi,
+                                                      rc_shift);
             }
             if (p + 1 < n_positions)
                 packed::store_streaming(keys + p, key0, key1);
@@ -275,6 +316,22 @@ unsigned long long hash_mask(int k) {
     return k >= 32 ? ~0ull : (1ull << (2 * k)) - 1;
 }
 
+template <bool Canonical>
+int keys_launch(const void* words, const void* ends, int n_rows,
+                long long n_positions, long long n_true, int k, void* keys,
+                void* stream) {
+    if ((uintptr_t)keys % 16) return (int)cudaErrorMisalignedAddress;
+    if (n_positions > 0) {
+        kmer_keys_kernel<Canonical>
+            <<<packed::persistent_grid<kmer_keys_kernel<Canonical>>(
+                   n_positions),
+               kThreads, 0, (cudaStream_t)stream>>>(
+                (const uint32_t*)words, (const int32_t*)ends, n_rows,
+                n_positions, n_true, k, hash_mask(k), (long long*)keys);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -284,15 +341,17 @@ extern "C" {
 int kmer_keys_launch(const void* words, const void* ends, int n_rows,
                      long long n_positions, long long n_true, int k,
                      void* keys, void* stream) {
-    if ((uintptr_t)keys % 16) return (int)cudaErrorMisalignedAddress;
-    if (n_positions > 0) {
-        kmer_keys_kernel<<<packed::persistent_grid<kmer_keys_kernel>(
-                               n_positions),
-                           kThreads, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)words, (const int32_t*)ends, n_rows,
-            n_positions, n_true, k, hash_mask(k), (long long*)keys);
-    }
-    return (int)cudaGetLastError();
+    return keys_launch<false>(words, ends, n_rows, n_positions, n_true, k,
+                              keys, stream);
+}
+
+// The same in canonical mode: the canonical key of each valid window.
+int kmer_keys_canonical_launch(const void* words, const void* ends,
+                               int n_rows, long long n_positions,
+                               long long n_true, int k, void* keys,
+                               void* stream) {
+    return keys_launch<true>(words, ends, n_rows, n_positions, n_true, k,
+                             keys, stream);
 }
 
 // out[0] += sum of low halves, out[1] += sum of high halves (mod 2^32)

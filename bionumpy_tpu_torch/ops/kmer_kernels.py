@@ -25,7 +25,11 @@ kmer_keys_kernel -- replaces the Pallas `_kmer_block_kernel`
     spans.  On that card it takes 0.107 ms at k = 31, 1.3x its bound,
     against 0.094 ms for fill_ over the same bytes (chip_smoke.py).  Its
     plain version derives validity the way JAX does (row-end marks +
-    cumsum), so the two cross-check two methods.
+    cumsum), so the two cross-check two methods.  Its canonical mode
+    (`canonical=True`, its own instance and launch count) keys each valid
+    window by the lesser of its hash and its reverse complement's, the
+    codes 3 - c in reverse order: in the kernel a bit reversal of the
+    complemented key, in the plain version one 2-bit digit at a time.
 
 kmer_fullsum_kernel -- replaces the Pallas `_fullsum_kernel`
     (bionumpy_tpu/ops/pallas_kmers.py:63, via pallas_fullsum_packed): the
@@ -60,7 +64,8 @@ _SOURCE = os.path.join(_build.CSRC, "kmers.cu")
 
 # launches per kernel since the last reset_launches(); a wrapper counts
 # where it launches its kernel and nowhere else
-LAUNCHES = {"kmer_keys_kernel": 0, "kmer_fullsum_kernel": 0}
+LAUNCHES = {"kmer_keys_kernel": 0, "kmer_keys_kernel.canonical": 0,
+            "kmer_fullsum_kernel": 0}
 
 _lib = None
 
@@ -79,9 +84,10 @@ def build() -> ctypes.CDLL:
                             headers=(_build.SPAN_HEADER,))
         lib = ctypes.CDLL(path)
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.kmer_keys_launch.restype = ctypes.c_int
-        lib.kmer_keys_launch.argtypes = [vp, vp, ctypes.c_int, ll, ll,
-                                         ctypes.c_int, vp, vp]
+        for launch in (lib.kmer_keys_launch, lib.kmer_keys_canonical_launch):
+            launch.restype = ctypes.c_int
+            launch.argtypes = [vp, vp, ctypes.c_int, ll, ll, ctypes.c_int,
+                               vp, vp]
         lib.kmer_fullsum_launch.restype = ctypes.c_int
         lib.kmer_fullsum_launch.argtypes = [vp, ll, ctypes.c_int, vp, vp]
         _lib = lib
@@ -165,38 +171,56 @@ def valid_windows_plain(ends: torch.Tensor, n_positions: int, k: int,
     return (invalid == 0) & (pos < torch.clamp(e[-1], max=n_true - offset))
 
 
+def _reverse_complement_keys(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The key of the reverse complement of each k-mer key (base j in bits
+    2j..2j+1): digit j of the result is 3 less digit k-1-j of the key."""
+    out = torch.zeros_like(keys)
+    for j in range(k):
+        out |= (3 - ((keys >> (2 * (k - 1 - j))) & 3)) << (2 * j)
+    return out
+
+
 def kmer_keys_plain(words: torch.Tensor, ends: torch.Tensor, k: int,
-                    n_true: int = None) -> torch.Tensor:
+                    n_true: int = None,
+                    canonical: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kmer_keys_kernel."""
     n_positions = _n_positions(words, k)
     if n_true is None:
         n_true = n_positions
     lo, hi = window_limbs_plain(words, k)
+    keys = lo | (hi << 32)
+    if canonical:
+        keys = torch.minimum(keys, _reverse_complement_keys(keys, k))
     valid = valid_windows_plain(ends, n_positions, k, n_true)
-    return torch.where(valid, lo | (hi << 32), SENTINEL)
+    return torch.where(valid, keys, SENTINEL)
 
 
 def kmer_keys(words: torch.Tensor, ends: torch.Tensor, k: int,
-              n_true: int = None) -> torch.Tensor:
+              n_true: int = None, canonical: bool = False) -> torch.Tensor:
     """int64 sort key of every window position of a packed batch.
 
     `words`: int32 view of the packed uint32 words (n_positions/16 + 2);
     `ends`: int32 cumulative row ends, padding rows repeating the last
-    end; `n_true`: the real base count (None = every position)."""
+    end; `n_true`: the real base count (None = every position);
+    `canonical`: a valid window's key is the lesser of its hash and its
+    reverse complement's."""
     n_positions = _n_positions(words, k)
     _check_ends(ends, words)
     if n_true is None:
         n_true = n_positions
     if not _on_card(words):
-        return kmer_keys_plain(words, ends, k, n_true)
+        return kmer_keys_plain(words, ends, k, n_true, canonical)
     keys = torch.empty(n_positions, dtype=torch.int64, device=words.device)
     lib = build()
+    launch, name = ((lib.kmer_keys_canonical_launch,
+                     "kmer_keys_kernel.canonical") if canonical else
+                    (lib.kmer_keys_launch, "kmer_keys_kernel"))
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _check_launch(lib.kmer_keys_launch(
+        _check_launch(launch(
             words.data_ptr(), ends.data_ptr(), ends.numel(), n_positions,
-            int(n_true), k, keys.data_ptr(), stream), "kmer_keys_kernel")
-    LAUNCHES["kmer_keys_kernel"] += 1
+            int(n_true), k, keys.data_ptr(), stream), name)
+    LAUNCHES[name] += 1
     return keys
 
 

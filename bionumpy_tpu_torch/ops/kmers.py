@@ -20,7 +20,8 @@ the merge kernel of ops/table_kernels, no sort), and the host waits once
 for every pass's meta.  Everything else here stays
 asynchronous on the card: no `.item()`, no `nonzero`, no shape that
 depends on the data.  Counts are device scalars and int64 tensors until
-the caller fetches them.
+the caller fetches them.  table_spectrum reduces a table's counts to its
+k-mer spectrum on the card and fetches the spectrum alone.
 
 The limb functions (kmer_hash_limbs, kmer_hashes_masked, hash_checksum,
 unique_kmer_stats) keep the JAX package's (lo, hi) outputs, as int64
@@ -61,12 +62,22 @@ TABLE_PASS_POSITIONS = 1 << 28
 FOLD_ROWS = 3 << 28
 # count_kmers' first cap (its table is compacted again where it passes)
 KMER_TABLE_CAP = 1 << 20
+# the largest accumulator a cap-rerun of blocked_table sizes from its
+# passes' distinct keys summed (16 bytes a row, twice at a fold); past
+# it the accumulator doubles from the largest pass's until the table fits
+RERUN_SUM_ROWS = 1 << 29
+# copies of each bin that table_spectrum adds into: a table's counts
+# crowd into a few bins (a read set's error k-mers all count 1), and
+# atomic adds to one address serialise; each count goes to the copy its
+# position picks, and the copies are summed after
+SPECTRUM_SPREAD = 256
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
            "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
            "sort_runs", "compact_runs", "sorted_runs_from_keys",
            "whole_table", "sentinel_table", "merge_hash_tables",
            "fold_tables", "table_passes", "blocked_table", "fetched_table",
+           "kmer_keys_of", "table_spectrum",
            "counts_from_runs", "kmer_sentinel_table_packed",
            "kmer_count_small_packed", "count_keys", "kmer_window_hashes",
            "sparse_count_tables", "kmer_fullsum_packed",
@@ -311,7 +322,7 @@ def table_passes(blocks) -> list:
         return [(ds, 0, len(ds.lengths), 0, ds.n)]
     out = []
     for ds in blocks:
-        ends = np.cumsum(np.asarray(ds.lengths, np.int64))
+        ends = ds.row_ends
         r0, base = 0, 0
         while r0 < len(ends):
             r1 = max(int(np.searchsorted(ends, base + TABLE_PASS_POSITIONS,
@@ -358,7 +369,12 @@ def blocked_table(passes, keys_of, cap: int):
     Where a table passed its cap, the passes run once more
     (`cap-rerun`), each table at the power of two that fits the largest,
     the accumulator at the power of two that fits the passes' distinct
-    keys summed (more memory than a `cap` that fits)."""
+    keys summed (more memory than a `cap` that fits).  Where that sum
+    passes RERUN_SUM_ROWS, as where the passes of a read set share most
+    of their keys and the sum overstates the table many times, the
+    accumulator starts at the largest table's rows (twice the cap at
+    least) and doubles, the passes run again each time (`cap-rerun`),
+    until the table fits: it holds at most twice the table's rows."""
     if len(passes) == 1:
         ds = passes[0][0]
         uniq, counts, _ = whole_table(keys_of(ds.words, ds.ends, ds.n), cap)
@@ -377,14 +393,45 @@ def blocked_table(passes, keys_of, cap: int):
     keys, counts, probe = folded(cap, cap)
     if probe[-1] >= cap:
         # a pass's table past its cap makes the accumulator pass it too
-        add("cap-rerun", 0.0)
-        keys = counts = None
         n_unique = probe[:-1:2]
-        keys, counts, probe = folded(
-            bucket_size(int(min(n_unique.sum(), probe[1:-1:2].sum())), 1),
-            bucket_size(int(n_unique.max()), 1))
+        pass_cap = bucket_size(int(n_unique.max()), 1)
+        most = bucket_size(int(min(n_unique.sum(), probe[1:-1:2].sum())), 1)
+        cap = most if most <= RERUN_SUM_ROWS else \
+            min(most, max(pass_cap, 2 * cap))
+        while True:
+            add("cap-rerun", 0.0)
+            keys = counts = None
+            keys, counts, probe = folded(cap, pass_cap)
+            if probe[-1] < cap or cap >= most:
+                break
+            cap = min(2 * cap, most)
     n = int(probe[-1])
     return keys[:n], counts[:n]
+
+
+def kmer_keys_of(k: int, canonical: bool = False):
+    """The keys_of(words, ends, n_true) of a k-mer table that
+    blocked_table takes: kernel 1's keys at k, canonical ones where
+    `canonical`."""
+    return lambda words, ends, n_true: kmer_keys(words, ends, k, n_true,
+                                                 canonical=canonical)
+
+
+def table_spectrum(counts: torch.Tensor, max_count: int) -> np.ndarray:
+    """The spectrum of a table's counts, reduced on the counts' device and
+    fetched alone: int64 h of max_count + 1 bins, h[c] the rows counted c
+    times, every count above max_count in h[max_count].  A table's rows
+    count at least once, so h[0] is 0.  The `kmer-spectrum` span (device
+    time; rows: the rows reduced, bytes: those fetched)."""
+    n_bins = max_count + 1
+    with stage("kmer-spectrum", n_bytes=8 * n_bins, rows=counts.numel(),
+               device=counts.is_cuda):
+        copy = torch.arange(counts.numel(), device=counts.device) \
+            % SPECTRUM_SPREAD
+        slots = torch.clamp(counts, max=max_count) * SPECTRUM_SPREAD + copy
+        h = count_keys(slots, n_bins * SPECTRUM_SPREAD).view(
+            n_bins, SPECTRUM_SPREAD).sum(1)
+        return fetch_rows(h, rows=n_bins)
 
 
 def fetched_table(keys: torch.Tensor, counts: torch.Tensor):
@@ -461,11 +508,13 @@ def kmer_window_hashes(words: torch.Tensor, ends: torch.Tensor, k: int,
 
 
 def sparse_count_tables(words: torch.Tensor, ends: torch.Tensor, k: int,
-                        n_true: int, cap: int = KMER_TABLE_CAP):
+                        n_true: int, cap: int = KMER_TABLE_CAP,
+                        canonical: bool = False):
     """Sorted (hashes uint64, counts int64) host table of one packed chunk:
     the chunk's whole_table (first compacted at `cap` rows), then a fetch
-    of its n_unique rows only."""
-    uniq, counts, _ = whole_table(kmer_keys(words, ends, k, n_true), cap)
+    of its n_unique rows only.  `canonical`: of the canonical keys."""
+    uniq, counts, _ = whole_table(
+        kmer_keys(words, ends, k, n_true, canonical=canonical), cap)
     return fetched_table(uniq, counts)
 
 

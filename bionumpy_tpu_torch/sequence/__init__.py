@@ -4,7 +4,7 @@ transcript sequences."""
 from .count_encoded import EncodedCounts, SparseEncodedCounts, count_encoded
 from .dna import (get_reverse_complement, get_sequences,
                   get_strand_specific_sequences)
-from .kmers import KmerEncoder, count_kmers, get_kmers
+from .kmers import KmerEncoder, count_kmers, get_kmers, kmer_spectrum
 from .minimizers import (Minimizers, count_minimizers,
                          count_minimizers_with_gc, get_minimizers)
 from .position_weight_matrix import (PWM, PositionWeightMatrix,
@@ -13,7 +13,7 @@ from .string_matcher import match_string
 from .translate import translate_dna_to_protein
 from .genes import get_transcript_sequences
 
-__all__ = ["count_kmers", "get_kmers", "get_minimizers", "count_minimizers",
+__all__ = ["count_kmers", "get_kmers", "kmer_spectrum", "get_minimizers", "count_minimizers",
            "count_minimizers_with_gc", "get_motif_scores",
            "get_motif_matches", "count_encoded", "EncodedCounts",
            "SparseEncodedCounts", "KmerEncoder", "Minimizers", "PWM",

@@ -11,7 +11,8 @@ sum(code_i * 4^i).
 The public functions take `device`: None is the card, which must be
 present; "cpu" runs the kernels' plain versions on the host.  They are
 call spans (instrument.call_span), and fetch through
-ops/device.fetch_rows.
+ops/device.fetch_rows.  count_kmers' canonical mode and kmer_spectrum
+(GenomeScope's k-mer histogram) have no counterpart in the JAX package.
 """
 from __future__ import annotations
 
@@ -150,7 +151,8 @@ def get_kmers(sequence, k: int, device=None) -> EncodedRaggedArray:
 
 @streamable(sum)
 @call_span
-def count_kmers(sequence, k: int, axis=None, device=None) -> EncodedCounts:
+def count_kmers(sequence, k: int, axis=None, device=None,
+                canonical: bool = False) -> EncodedCounts:
     """Count occurrences of each k-mer (reference:
     bionumpy/sequence/kmers.py:130-145).
 
@@ -159,6 +161,12 @@ def count_kmers(sequence, k: int, axis=None, device=None) -> EncodedCounts:
     and 12 < k < 32 gives a SparseEncodedCounts of the observed k-mers;
     both are counted on the device without fetching the windows.  Counts
     are int64.  A stream of chunks folds with sum.
+
+    `canonical=True` (12 < k < 32, a 4-letter alphabet, no axis) counts
+    each window under the lesser of its hash and the hash of its reverse
+    complement (the codes 3 - c in reverse order), as `jellyfish count
+    -C` does, so a k-mer read from either strand is one row.  The JAX
+    package has no such mode.
 
     Examples
     --------
@@ -171,10 +179,15 @@ def count_kmers(sequence, k: int, axis=None, device=None) -> EncodedCounts:
     3
     """
     sequence = as_encoded_array(sequence)
+    if canonical:
+        if axis is not None:
+            raise ValueError("canonical k-mers are counted over the whole "
+                             "array: axis must be None")
+        sequence = _table_sequence(sequence, k)
     if axis is None and _device_countable(sequence, k):
         return _device_count_kmers(sequence, k, device)
     if axis is None and _device_sparse_countable(sequence, k):
-        return _device_count_kmers_sparse(sequence, k, device)
+        return _device_count_kmers_sparse(sequence, k, device, canonical)
     kmers = get_kmers(sequence, k, device=device)
     return count_encoded(kmers, axis=axis)
 
@@ -211,8 +224,32 @@ def _device_sparse_countable(sequence, k: int) -> bool:
             enc.alphabet_size == 4 and 12 < k < 32)
 
 
-def _device_count_kmers_sparse(sequence, k: int,
-                               device=None) -> SparseEncodedCounts:
+def _table_sequence(sequence, k: int):
+    """The array as 4-letter codes that _device_sparse_countable admits,
+    for a canonical table or a spectrum, which take no other route: a
+    BaseEncoding array re-encoded as DNA; raises ValueError outside
+    12 < k < 32, where no sparse table of 2k-bit keys is made, and
+    TypeError for another alphabet."""
+    if not 12 < k < 32:
+        raise ValueError(f"canonical k-mer tables and spectra need "
+                         f"12 < k < 32, got k={k}")
+    if sequence.encoding == BaseEncoding:
+        sequence = change_encoding(sequence, DNAEncoding)
+    if not _device_sparse_countable(sequence, k):
+        raise TypeError("canonical k-mer tables and spectra need a "
+                        "4-letter AlphabetEncoding (e.g. DNAEncoding)")
+    return sequence
+
+
+def _table_passes(sequence, device):
+    from ..ops.kmers import table_passes
+    from ..ops.resident import device_seq_blocks
+    return table_passes(device_seq_blocks(_as_ragged(sequence), device))
+
+
+def _device_count_kmers_sparse(sequence, k: int, device=None,
+                               canonical: bool = False
+                               ) -> SparseEncodedCounts:
     """Count k-mers whose label space cannot be enumerated (k up to 31):
     the device sorts the window keys and compacts them to a (hash, count)
     table (ops/kmers.sparse_count_tables), so the copy to the host holds
@@ -221,19 +258,65 @@ def _device_count_kmers_sparse(sequence, k: int,
     counted pass by pass over its resident blocks, the passes' tables
     folded on the card (ops/kmers.blocked_table) at the same first cap.
     One pass stays with sparse_count_tables, the JAX package's op of one
-    packed batch."""
+    packed batch.  `canonical`: of the canonical keys."""
     from ..ops.kmers import (KMER_TABLE_CAP, blocked_table, fetched_table,
-                             kmer_keys, sparse_count_tables, table_passes)
-    from ..ops.resident import device_seq_blocks
+                             kmer_keys_of, sparse_count_tables)
 
-    sequence = _as_ragged(sequence)
-    passes = table_passes(device_seq_blocks(sequence, device))
+    passes = _table_passes(sequence, device)
     if len(passes) == 1:
         ds = passes[0][0]
-        hashes, counts = sparse_count_tables(ds.words, ds.ends, k, ds.n)
+        hashes, counts = sparse_count_tables(ds.words, ds.ends, k, ds.n,
+                                             canonical=canonical)
     else:
         hashes, counts = fetched_table(*blocked_table(
-            passes, lambda words, ends, n: kmer_keys(words, ends, k, n),
-            KMER_TABLE_CAP))
+            passes, kmer_keys_of(k, canonical), KMER_TABLE_CAP))
     return SparseEncodedCounts(KmerEncoding(sequence.encoding, k), hashes,
                                counts)
+
+
+@call_span
+def kmer_spectrum(sequence, k: int, canonical: bool = True,
+                  max_count: int = 10000, cap: int = None,
+                  device=None) -> np.ndarray:
+    """The k-mer spectrum of a read set, as GenomeScope reads it
+    (`jellyfish count -C -m k` then `jellyfish histo`): an int64 array h
+    of max_count + 1 bins, h[c] the number of distinct k-mers seen c
+    times, h[0] = 0, and every k-mer seen more than max_count times
+    counted in h[max_count].
+
+    The table is count_kmers' (12 < k < 32; canonical keys by default,
+    `canonical=False` for count_kmers' own), built on the device over the
+    array's resident blocks (ops/kmers.blocked_table: one whole_table
+    sort, or passes of whole rows folded on the card), first compacted at
+    `cap` rows (default ops/kmers.KMER_TABLE_CAP; a `cap` that fits the
+    table's distinct k-mers runs no pass twice, where a table past it
+    runs its passes again until the accumulator fits, as
+    blocked_table says: twice for a 30x read set of a 140 M-base
+    genome).  The counts are reduced
+    to the spectrum on the device and only the spectrum is fetched, never
+    the table.  The JAX package has no such function.
+
+    Examples
+    --------
+    A read and its reverse complement: three canonical 13-mers, each
+    seen twice, where the forward keys see six k-mers once.
+
+    >>> import bionumpy_tpu_torch as bnp
+    >>> reads = bnp.as_encoded_array(["ACGGTCATTGCAGCA", "TGCTGCAATGACCGT"],
+    ...                              bnp.DNAEncoding)
+    >>> bnp.kmer_spectrum(reads, 13, max_count=4, device="cpu")
+    array([0, 0, 3, 0, 0])
+    >>> bnp.kmer_spectrum(reads, 13, canonical=False, max_count=4,
+    ...                   device="cpu")
+    array([0, 6, 0, 0, 0])
+    """
+    from ..ops.kmers import (KMER_TABLE_CAP, blocked_table, kmer_keys_of,
+                             table_spectrum)
+
+    if max_count < 1:
+        raise ValueError(f"max_count must be at least 1, got {max_count}")
+    sequence = _table_sequence(as_encoded_array(sequence), k)
+    _, counts = blocked_table(_table_passes(sequence, device),
+                              kmer_keys_of(k, canonical),
+                              KMER_TABLE_CAP if cap is None else cap)
+    return table_spectrum(counts, max_count)

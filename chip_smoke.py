@@ -195,6 +195,23 @@ each of which raises on failure:
                by the profiler per kernel, beside the byte floor; then
                fold_tables over three passes with its fold-merge count
                and the kernel's launches
+ 24. kmer-spectrum  kmer21-spectrum-dm6's shapes: 14.3 M seeded reads of
+               150 bases (2.15 G bases) from both strands of a 70 M-base
+               genome at the cell's error rate, held as two resident
+               blocks (the block cut at 2^30 bases) and tabled in passes
+               of up to 2^28 bases, most starting inside a word: kernel
+               1's canonical instance over every pass's words equals the
+               whole block's canonical keys at the pass's positions, and
+               kmer_keys_plain(canonical=True) on the same words and ends
+               over two passes starting inside a word (k=21, 31); then
+               kmer_spectrum(k=21, cap 2^28) over both blocks, the
+               launch counters reset just before it, equals the plain
+               reference (portbench/kmer_spectrum_reference.py) on the
+               card, with one canonical launch a pass, no forward launch
+               and the spectrum alone fetched; then kmer_spectrum and
+               count_kmers(canonical=True) at their default cap, the
+               same spectrum after their reruns; prints the canonical
+               launches, the passes, the reruns, walls and peak memory
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -3256,6 +3273,158 @@ def phase_table_merge(dev):
         "gpu": gpu_line()}))
 
 
+def phase_kmer_spectrum(dev):
+    """The canonical k-mer spectrum at the shapes of kmer21-spectrum-dm6:
+    passes of up to 2^28 bases of 150-base reads, a row end every 150
+    bases, over two resident blocks (ops/kmers.MAX_PACKED_BASES cut to
+    2^30 for the phase, so 2.15 G bases make two), most passes starting
+    inside a word.  Kernel 1's canonical instance over each pass's words
+    (ops/kmers._pass_keys) equals the whole block's canonical keys at
+    the pass's positions, and its plain version on the same words and
+    ends; kmer_spectrum equals the benchmark's plain reference, one
+    canonical launch a pass, counted from 0 just before it; the default
+    cap reruns to the same spectrum.  Returns kmer_spectrum's
+    launches."""
+    import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import instrument
+    from bionumpy_tpu_torch.ops import kmer_kernels as kk
+    from bionumpy_tpu_torch.ops import kmers, resident
+    from portbench import kmer_spectrum_reference as ref
+    from portbench import traffic
+    t0 = time.perf_counter()
+    config = {"genome": {"chromosome_sizes": {"a": 40_000_000,
+                                              "b": 30_000_000}},
+              "reads": {"read_length": 150,
+                        "quality_weights": {"F": 17, "8": 3}}}
+    inp = traffic.reads_input(config, SEED + 24, traffic.ARRAYS, 14_300_000)
+    seqs = bt.EncodedRaggedArray(bt.EncodedArray(inp.flat, bt.DNAEncoding),
+                                 inp.lengths)
+    made = time.perf_counter() - t0
+    block_bases = kmers.MAX_PACKED_BASES
+    kmers.MAX_PACKED_BASES = 1 << 30
+    try:
+        blocks = resident.device_seq_blocks(seqs, dev)
+        passes = kmers.table_passes(blocks)
+        offsets = [p[3] % kk.WORD_BASES for p in passes]
+        log(f"[kmer-spectrum] {inp.n_bases} bases in {inp.n_reads} reads "
+            f"(made in {made:.1f} s), {len(blocks)} blocks; {len(passes)} "
+            f"passes of {[p[4] - p[3] for p in passes]} bases, first bases "
+            f"at {offsets} mod {kk.WORD_BASES}")
+        if len(blocks) != 2 or sum(map(bool, offsets)) < 2:
+            raise AssertionError("not two blocks, or fewer than two passes "
+                                 "starting inside a word")
+
+        def raw_keys(k, seen):
+            def keys_of(words, ends, n_true):
+                keys = kk.kmer_keys(words, ends, k, n_true, canonical=True)
+                seen.append((words, ends, n_true, keys.clone()))
+                return keys
+            return keys_of
+
+        plain_checked = 0
+        for ds in blocks:
+            whole = kk.kmer_keys(ds.words, ds.ends, 21, ds.n, canonical=True)
+            for p in (p for p in passes if p[0] is ds):
+                seen = []
+                got = kmers._pass_keys(p, raw_keys(21, seen))
+                off, size = p[3] % kk.WORD_BASES, p[4] - p[3]
+                if not (torch.equal(got[off: off + size], whole[p[3]: p[4]])
+                        and bool((got[:off] == SENTINEL).all())
+                        and bool((got[off + size:] == SENTINEL).all())):
+                    raise AssertionError(f"the canonical keys of pass "
+                                         f"{p[1:]} differ from the whole "
+                                         f"block's")
+                if off and plain_checked < 2:
+                    for k in (21, 31):
+                        if k != 21:
+                            seen = []
+                            kmers._pass_keys(p, raw_keys(k, seen))
+                        words, ends, n_true, raw = seen[-1]
+                        want = kk.kmer_keys_plain(words, ends, k, n_true,
+                                                  canonical=True)
+                        if not torch.equal(raw, want):
+                            raise AssertionError(
+                                f"kmer_keys_kernel<canonical> differs from "
+                                f"its plain version over pass {p[1:]} at "
+                                f"{int((raw != want).sum())} positions "
+                                f"(k={k})")
+                        del want
+                    plain_checked += 1
+                del got, seen
+            del whole
+        if plain_checked < 2:
+            raise AssertionError("no two passes starting inside a word")
+        log(f"[kmer-spectrum] exact: every pass's canonical keys equal the "
+            f"whole block's at k=21, and kernel 1's canonical instance its "
+            f"plain version over {plain_checked} passes starting inside a "
+            f"word (k=21, 31)")
+
+        def spectrum(**kw):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kk.reset_launches()
+            instrument.reset()
+            t = time.perf_counter()
+            h = bt.kmer_spectrum(seqs, 21, max_count=10000, device=dev, **kw)
+            wall = time.perf_counter() - t
+            return h, wall, dict(kk.LAUNCHES), instrument.report(), \
+                torch.cuda.max_memory_allocated(dev)
+
+        spectrum(cap=1 << 28)  # the warm-up job of the cell
+        h, wall, launches, rep, peak = spectrum(cap=1 << 28)
+        if launches["kmer_keys_kernel.canonical"] != len(passes) or \
+                launches["kmer_keys_kernel"] != 0 or "cap-rerun" in rep or \
+                rep["D2H"]["calls"] != 1 or \
+                rep["D2H"]["bytes"] != 8 * 10001:
+            raise AssertionError(f"kmer_spectrum: {launches} for "
+                                 f"{len(passes)} passes, {rep}")
+        h_default, wall_default, _, rep_default, peak_default = spectrum()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        table = bt.count_kmers(seqs, 21, device=dev, canonical=True)
+        wall_table = time.perf_counter() - t
+        peak_table = torch.cuda.max_memory_allocated(dev)
+        h_table = np.bincount(np.minimum(table.counts, 10000),
+                              minlength=10001)
+        n_distinct = len(table.counts)
+        del table
+    finally:
+        kmers.MAX_PACKED_BASES = block_bases
+    del seqs, blocks, passes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    want = ref.kmer_spectrum(inp.flat, inp.lengths, 21, True, 10000,
+                             dev).cpu().numpy()
+    ref_s = time.perf_counter() - t
+    for name, got in (("cap 2^28", h), ("default cap", h_default),
+                      ("count_kmers' table", h_table)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"the spectrum ({name}) differs from the "
+                                 f"reference in "
+                                 f"{int((got != want).sum())} bins")
+    log("[kmer-spectrum] " + json.dumps({
+        "bases": inp.n_bases, "passes": len(offsets),
+        "passes_inside_a_word": sum(map(bool, offsets)),
+        "canonical_launches": launches["kmer_keys_kernel.canonical"],
+        "forward_launches": launches["kmer_keys_kernel"],
+        "distinct": n_distinct, "h1": int(h[1]),
+        "peak_bin": int(np.argmax(h[5:])) + 5,
+        "wall_s": wall, "peak_device_bytes": peak,
+        "spectrum_device_s": rep["kmer-spectrum"].get("device_seconds"),
+        "default_cap_reruns": rep_default.get("cap-rerun", {}).get("calls",
+                                                                    0),
+        "default_cap_wall_s": wall_default,
+        "default_cap_peak_device_bytes": peak_default,
+        "count_kmers_wall_s": wall_table,
+        "count_kmers_peak_device_bytes": peak_table,
+        "reference_s": ref_s, "gpu": gpu_line()}))
+    return launches
+
+
 def run_phase(name: str, phase, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3331,6 +3500,7 @@ def main() -> int:
     sim_launches = run_phase("simulate", phase_simulate, dev)
     table_launches = run_phase("table-passes", phase_table_passes, dev)
     run_phase("table-merge", phase_table_merge, dev)
+    spectrum_launches = run_phase("kmer-spectrum", phase_kmer_spectrum, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],
@@ -3350,7 +3520,9 @@ def main() -> int:
         **{f"{name}_jobs": n["kmer_keys_kernel"]
            for name, n in mesh_launches.items()},
         "simulate": sim_launches["kmer_keys_kernel"],
-        "table_passes": table_launches["kmer_keys_kernel"]}
+        "table_passes": table_launches["kmer_keys_kernel"],
+        "kmer_spectrum_canonical":
+            spectrum_launches["kmer_keys_kernel.canonical"]}
     rows[1]["launches"] = sum_launches["kmer_fullsum_kernel"]
     rows[1]["launches_by_path"] = {
         "checksum": sum_launches["kmer_fullsum_kernel"],

@@ -24,6 +24,9 @@ PORT_ONLY = {
     "get_motif_matches",
     # ops/kmers.kmer_checksum_streamed, the streamed checksum entry point
     "kmer_checksum_streamed",
+    # sequence/kmers.kmer_spectrum, the canonical k-mer spectrum (GenomeScope's
+    # input), which the JAX package does not have
+    "kmer_spectrum",
     # io/jaspar and io/motifs readers of the motif scans
     "read_jaspar_matrix", "read_motif",
 }

@@ -213,6 +213,26 @@ def test_kernels_match_plain_versions_on_card(cuda, k, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k, layout", KMER_CASES)
+def test_canonical_keys_match_plain_version_on_card(cuda, k, layout):
+    """Kernel 1's canonical instance equals its plain version (a digit at a
+    time), counted apart from the forward instance."""
+    _, _, words, ends, n = _kmer_case(k, layout)
+    words, ends = words.to(cuda), ends.to(cuda)
+    before = dict(kk.LAUNCHES)
+    for n_true in _n_trues(n):
+        got = kk.kmer_keys(words, ends, k, n_true, canonical=True)
+        assert torch.equal(got, kk.kmer_keys_plain(words, ends, k, n_true,
+                                                   canonical=True))
+        forward = kk.kmer_keys(words, ends, k, n_true)
+        assert bool((got <= forward).all())
+    assert kk.LAUNCHES["kmer_keys_kernel.canonical"] == \
+        before["kmer_keys_kernel.canonical"] + len(_n_trues(n))
+    assert kk.LAUNCHES["kmer_keys_kernel"] == \
+        before["kmer_keys_kernel"] + len(_n_trues(n))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_positions", [1, 63, 511, 1001, 4098])
 def test_kernels_write_exactly_their_positions_on_card(cuda, n_positions):
     """Through the C entry points, counts the wrappers never pass (not a
@@ -673,12 +693,14 @@ def test_kmer_checksums_on_card_match_cpu(cuda, k, cut):
                                                lengths32)
     kk.reset_launches()
     got = [_ints(tk.kmer_checksum_packed(words_d, ends_d, k))]
-    assert kk.LAUNCHES == {"kmer_keys_kernel": 0, "kmer_fullsum_kernel": 1}
+    assert kk.LAUNCHES == {"kmer_keys_kernel": 0, "kmer_fullsum_kernel": 1,
+                           "kmer_keys_kernel.canonical": 0}
     got.append(_ints(tk.kmer_checksum_pipeline_packed(words_d, ends_d, k,
                                                       n_true)))
     got.append(_ints(tk.kmer_checksum_pipeline(padded_d, lengths_d, k,
                                                n_true)))
-    assert kk.LAUNCHES == {"kmer_keys_kernel": 2, "kmer_fullsum_kernel": 1}
+    assert kk.LAUNCHES == {"kmer_keys_kernel": 2, "kmer_fullsum_kernel": 1,
+                           "kmer_keys_kernel.canonical": 0}
     assert got == want
     if cut == 0:
         assert want[0] == want[1] == want[2]

@@ -5,7 +5,10 @@ and passes are forced small enough to make 3 or more passes; the spans,
 the counter and kernel 1's launches are read just after.  The folds'
 merge kernel (ops/table_kernels) equals its plain version bit for bit
 at sizes that cross many tiles, and the chunked GC job, which folds
-through it, equals the same job in one chunk.  This file imports
+through it, equals the same job in one chunk.  Canonical tables
+(count_kmers(..., canonical=True)) on the card equal the CPU's, one pass
+and in passes, and kmer_spectrum over ~1.08 G bases of reads, in passes,
+equals the benchmark's plain reference on the card.  This file imports
 neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -235,3 +238,77 @@ def test_chunked_gc_job_on_card_equals_one_chunk(cuda):
     assert rep["fold-merge"]["calls"] == rep["table-fold"]["calls"] >= 1
     assert table_kernels.LAUNCHES["merge_tables_kernel"] == \
         rep["fold-merge"]["rows"] - rep["fold-merge"]["calls"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 21, 31])
+@pytest.mark.parametrize("passes", [False, True])
+def test_canonical_table_on_card_equals_cpu(cuda, monkeypatch, k, passes):
+    rng = np.random.default_rng(k)
+    lengths = rng.integers(0, 300, 20_000)
+    lengths[::7] = 150
+    flat = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    # every read's reverse complement among the reads too
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    flat = np.concatenate([flat] + [3 - flat[s: s + n][::-1]
+                                    for s, n in zip(starts[:5000],
+                                                    lengths[:5000])])
+    lengths = np.concatenate([lengths, lengths[:5000]])
+    want = bt.count_kmers(_seqs(flat, lengths), k, device="cpu",
+                          canonical=True)
+    if passes:
+        monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 1 << 21)
+        monkeypatch.setattr(kmers, "TABLE_PASS_POSITIONS", 1 << 19)
+    seqs = _seqs(flat, lengths)
+    n_passes = len(kmers.table_passes(resident.device_seq_blocks(seqs,
+                                                                 cuda)))
+    assert (n_passes >= 3) == passes
+    kmer_kernels.reset_launches()
+    got = bt.count_kmers(seqs, k, device=cuda, canonical=True)
+    np.testing.assert_array_equal(got.label_codes, want.label_codes)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert kmer_kernels.LAUNCHES["kmer_keys_kernel"] == 0
+    assert kmer_kernels.LAUNCHES["kmer_keys_kernel.canonical"] >= n_passes
+
+
+@pytest.mark.cuda
+def test_spectrum_of_a_gigabase_of_reads_on_card_equals_reference(cuda):
+    """7.2 M seeded reads of 150 bases (1.08 G bases, past one block's
+    whole-table sort) from both strands of a 36 M-base genome with
+    substitutions: kmer_spectrum in passes on the card, fetching the
+    spectrum alone, against portbench/kmer_spectrum_reference.py on the
+    card."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import kmer_spectrum_reference as ref
+    from portbench import traffic
+
+    config = {"genome": {"chromosome_sizes": {"a": 24_000_000,
+                                              "b": 12_000_000}},
+              "reads": {"read_length": 150,
+                        "quality_weights": {"F": 17, "8": 3}}}
+    inp = traffic.reads_input(config, 3_241_000_001, traffic.ARRAYS,
+                              7_200_000)
+    seqs = _seqs(inp.flat, inp.lengths)
+    n_passes = len(kmers.table_passes(resident.device_seq_blocks(seqs,
+                                                                 cuda)))
+    assert n_passes >= 2 and inp.n_bases > kmers.WHOLE_TABLE_POSITIONS
+    kmer_kernels.reset_launches()
+    instrument.reset()
+    got = bt.kmer_spectrum(seqs, 21, max_count=10000, cap=1 << 27,
+                           device=cuda)
+    rep = instrument.report()
+    assert kmer_kernels.LAUNCHES["kmer_keys_kernel.canonical"] == n_passes
+    assert rep["table-passes"]["rows"] == n_passes
+    assert rep["D2H"]["calls"] == 1 and rep["D2H"]["bytes"] == 8 * 10001
+    assert rep["kmer-spectrum"]["device_seconds"] > 0
+    assert "cap-rerun" not in rep
+    del seqs
+    want = ref.kmer_spectrum(inp.flat, inp.lengths, 21, True, 10000, cuda)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    # an error mass at count 1 and a genomic peak near 30 x 130/150
+    assert got[0] == 0 and got[1] > got[5]
+    assert 15 < int(np.argmax(got[5:])) + 5 < 35
