@@ -4,10 +4,13 @@ A window's 2k-bit hash is one int64 key, not the JAX package's two
 uint32 limbs (the TPU has no int64).  Invalid windows carry the sentinel
 2^63-1, above every k <= 31 hash, so a plain sort pushes them past every
 real key.  A batch is counted by: kmer_keys (ops/kmer_kernels.py) ->
-sort and run detection (sort_runs, the one sort of every table of the
-port, merge_hash_tables' merges included; the folds' merge kernel sorts
-nothing) -> compaction of the run heads to the front of a
-`cap`-row table (compact_runs) -> counts from the run-start differences.
+the sort (sort_keys, the one sort of every table of the port,
+merge_hash_tables' merges included; the folds' merge kernel sorts
+nothing) -> the sorted keys' runs compacted into a `cap`-row table of
+(key, run length) rows (table_kernels.run_table: a CUDA kernel on the
+card, on the CPU its plain version, the run marks of run_marks, the
+compaction of the run heads to the front (compact_runs) and counts from
+the run-start differences (counts_from_runs)).
 
 whole_table owns the size policy of a table that its caller fetches
 whole: it waits once for the table's row count and compacts again from
@@ -42,7 +45,7 @@ from .device import (bucket_size, distance_to_row_end, fetch_rows,
                      resolve_device)
 from .kmer_kernels import (SENTINEL, WORD_BASES, kmer_fullsum, kmer_keys,
                            limbs_at, window_limbs_plain)
-from .table_kernels import merge_tables
+from .table_kernels import merge_tables, run_table
 
 _M32 = 0xFFFFFFFF
 # the most bases one packed batch holds: its row ends are int32
@@ -74,7 +77,8 @@ SPECTRUM_SPREAD = 256
 
 __all__ = ["WORD_BASES", "SENTINEL", "prepare_packed", "pack_codes_host",
            "pack_codes", "kmer_hash_limbs", "kmer_sorted_runs_packed",
-           "sort_runs", "compact_runs", "sorted_runs_from_keys",
+           "sort_keys", "run_marks", "sort_runs", "compact_runs",
+           "sorted_runs_from_keys",
            "whole_table", "sentinel_table", "merge_hash_tables",
            "fold_tables", "table_passes", "blocked_table", "fetched_table",
            "kmer_keys_of", "table_spectrum",
@@ -159,20 +163,31 @@ def heads_first(is_head: torch.Tensor, cap: int) -> torch.Tensor:
     return out[:cap]
 
 
-def sort_runs(keys: torch.Tensor):
-    """The sort step of every table: sort the keys and mark the runs of
-    equal valid keys.  Returns (sorted keys, the sort's indices, is_start,
-    n_unique, n_valid); the last two are device scalars.  Every table
-    sort of the port runs here, as the `sort` span (its rows: the keys
-    sorted)."""
-    n = keys.numel()
-    with stage("sort", rows=n, device=keys.is_cuda):
-        s, order = torch.sort(keys)
+def sort_keys(keys: torch.Tensor):
+    """The sort of every table of the port, the `sort` span (its rows: the
+    keys sorted): (sorted keys, the sort's indices)."""
+    with stage("sort", rows=keys.numel(), device=keys.is_cuda):
+        return torch.sort(keys)
+
+
+def run_marks(s: torch.Tensor):
+    """The runs of equal valid keys of sorted keys `s`: (is_start,
+    n_unique, n_valid); the last two are device scalars."""
+    n = s.numel()
     n_valid = (s != SENTINEL).sum()
-    is_start = torch.ones(n, dtype=torch.bool, device=keys.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=s.device)
     is_start[1:] = s[1:] != s[:-1]
-    is_start &= torch.arange(n, device=keys.device) < n_valid
-    return s, order, is_start, is_start.sum(), n_valid
+    is_start &= torch.arange(n, device=s.device) < n_valid
+    return is_start, is_start.sum(), n_valid
+
+
+def sort_runs(keys: torch.Tensor):
+    """The sort step of the tables that keep their run starts: sort the
+    keys (sort_keys) and mark the runs of equal valid keys (run_marks).
+    Returns (sorted keys, the sort's indices, is_start, n_unique,
+    n_valid); the last two are device scalars."""
+    s, order = sort_keys(keys)
+    return (s, order, *run_marks(s))
 
 
 def compact_runs(s: torch.Tensor, is_start: torch.Tensor, cap: int):
@@ -193,27 +208,21 @@ def sorted_runs_from_keys(keys: torch.Tensor, cap: int):
 
 def whole_table(keys: torch.Tensor, cap: int):
     """The whole (keys, counts) table of the keys, for a caller that
-    fetches it: one sort, a compaction at min(cap, n) rows and one wait
-    for n_unique (`D2H-meta`).  A table past that is compacted again from
-    the same sort at the power of two that fits it (`cap-rerun`).
-    Returns (keys, counts) of n_unique rows and the (2,) int64 device
-    meta [n_unique, n_valid]."""
-    s, _, is_start, n_unique, n_valid = sort_runs(keys)
-
-    def compacted(rows):
-        uniq, run_starts = compact_runs(s, is_start, rows)
-        return uniq, counts_from_runs(run_starts, n_unique, n_valid, rows)
-
+    fetches it: one sort, a compaction at min(cap, n) rows
+    (table_kernels.run_table) and one wait for n_unique (`D2H-meta`).  A
+    table past that is compacted again from the same sort at the power
+    of two that fits it (`cap-rerun`).  Returns (keys, counts) of
+    n_unique rows and the (2,) int64 device meta [n_unique, n_valid]."""
+    s, _ = sort_keys(keys)
     # counts and meta are enqueued before the wait: the card computes
     # them while the host waits, and a table that fits needs no launch after
     rows = min(cap, keys.numel())
-    uniq, counts = compacted(rows)
-    meta = torch.stack([n_unique, n_valid])
+    uniq, counts, meta = run_table(s, rows)
     with stage("D2H-meta", device=keys.is_cuda):
-        n = int(n_unique)
+        n = int(meta[0])
     if n > rows:
         add("cap-rerun", 0.0)
-        uniq, counts = compacted(min(bucket_size(n, 1), keys.numel()))
+        uniq, counts, _ = run_table(s, min(bucket_size(n, 1), keys.numel()))
     return uniq[:n], counts[:n], meta
 
 
@@ -240,17 +249,13 @@ def merge_hash_tables(keys: torch.Tensor, cnt: torch.Tensor, cap_out: int):
 def sentinel_table(keys: torch.Tensor, cap: int):
     """The fold-ready table of the keys: (keys, counts) int64 rows, as
     many as min(cap, len(keys)), the unused ones (SENTINEL, 0), and the
-    (2,) int64 meta [n_unique, n_valid].  n_unique is the true distinct
-    count even where it exceeds the rows (the table then holds the first
-    runs, as in the JAX package), so tables of several batches
+    (2,) int64 meta [n_unique, n_valid]: one sort, then the sorted keys'
+    runs compacted (table_kernels.run_table).  n_unique is the true
+    distinct count even where it exceeds the rows (the table then holds
+    the first runs, as in the JAX package), so tables of several batches
     concatenate and merge with merge_hash_tables."""
-    uniq, run_starts, n_unique, n_valid = sorted_runs_from_keys(
-        keys, min(cap, keys.numel()))
-    rows = run_starts.numel()
-    cnt = counts_from_runs(run_starts, n_unique, n_valid, rows)
-    live = torch.arange(rows, device=keys.device) < n_unique
-    return (torch.where(live, uniq, SENTINEL), cnt,
-            torch.stack([n_unique, n_valid]))
+    s, _ = sort_keys(keys)
+    return run_table(s, min(cap, keys.numel()))
 
 
 def fold_tables(key_passes, cap: int, pass_cap: int, on_card: bool):

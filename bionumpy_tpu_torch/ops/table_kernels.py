@@ -1,12 +1,13 @@
-"""The device table's hand-written CUDA kernel (csrc/tables.cu): the
-merge of sorted sentinel tables, its wrapper, launch count and plain
-PyTorch version.
+"""The device table's hand-written CUDA kernels (csrc/tables.cu): the
+merge of sorted sentinel tables and the run table of sorted keys, their
+wrappers, launch counts and plain PyTorch versions.
 
-The wrapper takes tensors on the CPU to the plain version and, for CUDA
+Each wrapper takes tensors on the CPU to the plain version and, for CUDA
 tensors, launches the kernel or raises: there is no fallback.  The
-library is built with nvcc at the first merge on the card
-(ops/_build.py), so calls that never fold a table never build it, and is
-bound with ctypes; importing this module needs no compiler and no card.
+library is built with nvcc at the first table on the card
+(ops/_build.py), so calls that never make a table on the card never
+build it, and is bound with ctypes; importing this module needs no
+compiler and no card.
 
 merge_tables_kernel -- replaces no Pallas kernel: the JAX package folds
     tables by XLA's sort of their concatenation (merge_hash_tables in
@@ -24,6 +25,21 @@ merge_tables_kernel -- replaces no Pallas kernel: the JAX package folds
     accumulator and a 2^28-row pass table.  More than two tables merge
     two at a time, each result cut to `cap` rows, which keeps the
     smallest keys whole.
+
+run_table_kernel -- replaces no Pallas kernel: the JAX package compacts
+    a sorted key array's runs in XLA (run marks, a stable sort of
+    (~is_head, position), differences of the run starts), as the port
+    did in ~20 torch ops a table (sort_runs' marks, compact_runs,
+    counts_from_runs and a `where`), which stay as the plain version.
+    The sorted keys of a table (every sentinel last) become its first
+    `rows` runs below the first sentinel, each as (key, length), then
+    (SENTINEL, 0) rows, and the meta [n_unique, n_valid]: a binary search
+    for the live length, a count pass of the heads a tile of 2048 keys, a
+    one-block scan (output offsets, and the first head past each tile,
+    which closes a run that crosses tiles), a write pass and the fill
+    (five launches, one `launch` here).  Bound by bytes: the live keys
+    read once and `rows` rows of 16 bytes written once, 6.3 GB (1.9 ms)
+    for a pass of 2^28 keys.
 """
 from __future__ import annotations
 
@@ -32,19 +48,22 @@ import os
 
 import torch
 
+from ..instrument import add
 from . import _build
 from .kmer_kernels import SENTINEL
 
 _SOURCE = os.path.join(_build.CSRC, "tables.cu")
 
-# launches per kernel since the last reset_launches(): one a merge of two
-# tables (the six kernels of csrc/tables.cu), counted where it launches
-LAUNCHES = {"merge_tables_kernel": 0}
+# launches per kernel since the last reset_launches(), counted where they
+# launch: one a merge of two tables (six kernels of csrc/tables.cu), one a
+# table compacted from its sorted keys (five kernels)
+LAUNCHES = {"merge_tables_kernel": 0, "run_table_kernel": 0}
 
 _lib = None
 
 __all__ = ["SENTINEL", "LAUNCHES", "reset_launches", "build",
-           "merge_tables_plain", "merge_tables"]
+           "merge_tables_plain", "merge_tables", "run_table_plain",
+           "run_table"]
 
 
 def reset_launches() -> None:
@@ -65,6 +84,10 @@ def build() -> ctypes.CDLL:
         lib.merge_tables_launch.restype = ctypes.c_int
         lib.merge_tables_launch.argtypes = [vp, vp, ll, vp, vp, ll, ll, vp,
                                             vp, ll, vp, vp, vp]
+        lib.run_table_scratch.restype = ll
+        lib.run_table_scratch.argtypes = [ll]
+        lib.run_table_launch.restype = ctypes.c_int
+        lib.run_table_launch.argtypes = [vp, ll, ll, vp, vp, vp, vp, vp]
         _lib = lib
     return _lib
 
@@ -141,3 +164,57 @@ def merge_tables(tables, cap: int):
     for table in rest:
         acc = _merge_two(acc[:2], table, cap, lib)
     return acc
+
+
+def run_table_plain(sorted_keys: torch.Tensor, rows: int):
+    """Plain PyTorch version of run_table: the run marks of sort_runs,
+    compact_runs and counts_from_runs at `rows`, the rows past n_unique
+    set to (SENTINEL, 0)."""
+    from .kmers import compact_runs, counts_from_runs, run_marks
+    is_start, n_unique, n_valid = run_marks(sorted_keys)
+    uniq, run_starts = compact_runs(sorted_keys, is_start, rows)
+    counts = counts_from_runs(run_starts, n_unique, n_valid, rows)
+    live = torch.arange(rows, device=sorted_keys.device) < n_unique
+    return (torch.where(live, uniq, SENTINEL), counts,
+            torch.stack([n_unique, n_valid]))
+
+
+def run_table(sorted_keys: torch.Tensor, rows: int):
+    """The sentinel table of `sorted_keys`, a contiguous 1-D int64 tensor
+    sorted ascending (so every SENTINEL last), with no wait: (keys,
+    counts, meta).  keys and counts have `rows` rows (at most the keys'
+    length): the first `rows` runs of equal keys below the first
+    SENTINEL, each as its key and its length, then (SENTINEL, 0) rows;
+    meta is the (2,) int64 device tensor [n_unique, n_valid], the runs
+    (not clamped at `rows`) and the keys below the first SENTINEL.  Past
+    `rows` runs the last row's count is 0 less its run's start, as the
+    JAX package cuts its table.  Counted once as `run-table` (rows: the
+    sorted keys)."""
+    t = sorted_keys
+    if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError("run_table takes a contiguous 1-D int64 tensor of "
+                         "sorted keys")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    n, rows = t.numel(), int(rows)
+    if not 0 <= rows <= n:
+        raise ValueError(f"rows {rows} outside 0..{n}, the keys' length")
+    add("run-table", 0.0, rows=n)
+    if t.device.type == "cpu":
+        return run_table_plain(t, rows)
+    lib = build()
+    keys = torch.empty(rows, dtype=torch.int64, device=t.device)
+    counts = torch.empty(rows, dtype=torch.int64, device=t.device)
+    meta = torch.empty(2, dtype=torch.int64, device=t.device)
+    scratch = torch.empty(lib.run_table_scratch(n), dtype=torch.int64,
+                          device=t.device)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.run_table_launch(t.data_ptr(), n, rows, keys.data_ptr(),
+                                   counts.data_ptr(), meta.data_ptr(),
+                                   scratch.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"run_table_kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["run_table_kernel"] += 1
+    return keys, counts, meta

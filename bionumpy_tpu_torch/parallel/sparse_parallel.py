@@ -36,8 +36,8 @@ __all__ = ["merge_hash_tables", "sharded_sparse_count_step",
 def _local_table(words, ends, n_true, k: int, cap: int):
     """Per-shard (keys, counts, meta) table, sentinel-padded to
     min(cap, positions) rows; meta is (2,) int64 [n_unique, n_valid]
-    (kernel 1, then ops/kmers.kmer_sorted_runs_packed and
-    counts_from_runs)."""
+    (kernel 1, then ops/kmers.sentinel_table: the sort and the run
+    table)."""
     return kmer_sentinel_table_packed(words, ends, k, int(n_true), cap)
 
 

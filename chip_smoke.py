@@ -63,8 +63,10 @@ each of which raises on failure:
                EncodedRaggedArray: count_kmers(s, 31), count_kmers(s, 12)
                and get_kmers(s, 21), each equal to a numpy recount of
                the 16 variants times their copies, with one upload of the
-               array for the three; prints each call's time, the peak
-               device memory and the kernel launches
+               array for the three, and count_kmers(s, 31) one run table
+               launch (whole_table) and one more a cap rerun; prints each
+               call's time, the peak device memory and the kernel
+               launches
   8. checksum  kmer_checksum_streamed (the fullsum kernel) must agree
                with the table's sums; prints its wall and, from one more
                profiled run, the device time of its fullsum launches
@@ -182,8 +184,9 @@ each of which raises on failure:
                same words and ends (k=31 and k=15, two passes) and, at
                k=31, against the whole block's keys at the pass's
                positions; then blocked_table of the minimizers (k=15,
-               24-base windows) over both blocks: one kmer_keys launch a
-               pass, every window counted once, the keys strictly rising;
+               24-base windows) over both blocks: one kmer_keys launch and
+               one run table launch a pass (a pass more each cap rerun),
+               every window counted once, the keys strictly rising;
                prints the passes, their offsets, the folds, their merges
                (each through the merge kernel, no sort inside a fold)
                and the peak device memory
@@ -210,8 +213,24 @@ each of which raises on failure:
                card, with one canonical launch a pass, no forward launch
                and the spectrum alone fetched; then kmer_spectrum and
                count_kmers(canonical=True) at their default cap, the
-               same spectrum after their reruns; prints the canonical
-               launches, the passes, the reruns, walls and peak memory
+               same spectrum after their reruns; each kmer_spectrum one
+               run table launch a pass and a pass more each cap rerun;
+               prints the canonical and run table launches, the passes,
+               the reruns, walls and peak memory
+ 25. run-table  the run table kernel (ops/table_kernels.run_table) at a
+               table pass's shape, 2^28 sorted keys about half distinct
+               with a sixteenth sentinels, at 2^28 rows and cut at half
+               its runs, and at kmer31-resident's, 2^26 sorted keys of
+               which 39.3 M live and ~10 M distinct, at 2^20 rows (past
+               them: the compaction that whole_table throws away) and
+               2^24: each one launch, bit for bit equal to its plain
+               version (the run marks, compact_runs and
+               counts_from_runs), both timed by
+               CUDA events, the kernel beside its byte floor (the live
+               keys read once, the rows written once) and by the
+               profiler kernel by kernel; prints the ptxas registers,
+               shared memory and spills of the kernels of
+               csrc/tables.cu
 
 Each phase prints its seconds ("[phase] ...").
 
@@ -447,6 +466,23 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
                             for _ in range(runs)]))
 
 
+def call_ms(fn, runs: int):
+    """(median, all) ms by CUDA events around each of `runs` calls of fn,
+    each result freed before the next call: for calls of milliseconds
+    whose outputs fill the card."""
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    return float(np.median(times)), times
+
+
 def kernel_device_ms(fn, kernel: str, runs: int = TIMING_RUNS) -> float:
     """Mean device time in ms of one launch of `kernel` over `runs` calls
     of fn under the CUDA profiler: the kernel's own duration, without the
@@ -517,11 +553,12 @@ def bound(n_bytes: int, n_ops: int):
 
 def ptxas_report(text: str) -> str:
     """Registers, shared memory and spills of each kernel in nvcc's
-    -Xptxas -v output, one short entry per kernel (the template
-    instance pwm_scores_kernel<W> with its W)."""
+    -Xptxas -v output, one short entry per kernel (the template instance
+    pwm_scores_kernel<W> with its W)."""
     entries = []
     for block in text.split("Compiling entry function")[1:]:
-        name = re.match(r" '\S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", block)
+        name = re.match(r" '\S*?([a-z][a-z_]*_(?:kernel|count|scan|fill|"
+                        r"rows|partition))(?:ILi(\d+)E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         smem = re.search(r"(\d+) bytes smem", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1037,11 +1074,14 @@ def phase_device_parse(dev, workdir: str, packed, packed_stats,
 def phase_user_api(dev, variants, lengths):
     """The user-level k-mer API over the motif job's reads (16 variants x
     32 copies x 1000 reads) held as ONE EncodedRaggedArray: every call
-    must equal a numpy recount, and the three calls must upload the
-    array once.  Returns the kmer_keys launches of the three calls."""
+    must equal a numpy recount, the three calls must upload the array
+    once, and count_kmers(s, 31) launch the run table once (once more a
+    cap rerun).  Returns the kmer_keys launches of the three calls."""
     import bionumpy_tpu_torch as bt
+    from bionumpy_tpu_torch import instrument
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     from bionumpy_tpu_torch.ops import resident
+    from bionumpy_tpu_torch.ops import table_kernels as tk
     n_var = MOTIF_MEMBERS // COPIES
     flat = np.concatenate([variants[v] for v in range(n_var)
                            for _ in range(COPIES)])
@@ -1064,8 +1104,16 @@ def phase_user_api(dev, variants, lengths):
         times[name] = time.perf_counter() - t0
         return out
 
+    tk.reset_launches()
+    instrument.reset()
     c31 = timed("count_kmers_31", lambda: bt.count_kmers(seqs, 31,
                                                          device=dev))
+    # one resident block: one whole_table, compacted again past its cap
+    c31_tables = tk.LAUNCHES["run_table_kernel"]
+    c31_reruns = instrument.report().get("cap-rerun", {}).get("calls", 0)
+    if c31_tables != 1 + c31_reruns:
+        raise AssertionError(f"count_kmers(s, 31): {c31_tables} run_table "
+                             f"launches, {c31_reruns} cap reruns")
     c12 = timed("count_kmers_12", lambda: bt.count_kmers(seqs, 12,
                                                          device=dev))
     g21 = timed("get_kmers_21", lambda: bt.get_kmers(seqs, 21, device=dev))
@@ -1103,6 +1151,8 @@ def phase_user_api(dev, variants, lengths):
         f"{uploads} upload of {resident.TRANSFER_BYTES} bytes")
     log("[user-api] " + json.dumps({
         "seconds": times, "launches": launches, "uploads": uploads,
+        "count_kmers_31_run_table_launches": c31_tables,
+        "count_kmers_31_cap_reruns": c31_reruns,
         "peak_device_bytes": peak, "gpu": gpu_line()}))
     return launches, seqs, c31
 
@@ -1588,6 +1638,7 @@ def phase_kmer_ops(dev, batch):
         torch.cuda.synchronize()
         got = dict(kk.LAUNCHES)
         if got != {"kmer_keys_kernel": want[0],
+                   "kmer_keys_kernel.canonical": 0,
                    "kmer_fullsum_kernel": want[1]}:
             raise AssertionError(f"{tag} launched {got}, its route "
                                  f"{want}")
@@ -3034,8 +3085,8 @@ def phase_table_passes(dev):
     plain version on the same words and ends, and the whole block's keys
     at the pass's positions, with the sentinel before and after them;
     blocked_table of the minimizers (k=15, 24-base windows) launches
-    kmer_keys once a pass and counts every window once.  Returns the
-    launches of blocked_table."""
+    kmer_keys and the run table once a pass (once more a cap rerun) and
+    counts every window once.  Returns the launches of blocked_table."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch import instrument
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
@@ -3127,6 +3178,13 @@ def phase_table_passes(dev):
     if int(counts.sum()) != windows or not bool((keys[1:] > keys[:-1]).all()):
         raise AssertionError("the folded minimizer table does not count "
                              "every window once in rising keys")
+    reruns = rep.get("cap-rerun", {}).get("calls", 0)
+    tables = tk.LAUNCHES["run_table_kernel"]
+    if tables != len(passes) * (1 + reruns) or \
+            tables != rep["run-table"]["calls"]:
+        raise AssertionError(f"{tables} run_table launches for "
+                             f"{len(passes)} passes, {reruns} cap reruns, "
+                             f"{rep['run-table']} tables")
     merges = rep["fold-merge"]
     if merges["calls"] != rep["table-fold"]["calls"] or \
             tk.LAUNCHES["merge_tables_kernel"] != \
@@ -3142,7 +3200,7 @@ def phase_table_passes(dev):
         "fold_device_s": rep["table-fold"].get("device_seconds"),
         "fold_merges": merges["calls"], "tables_merged": merges["rows"],
         "merge_launches": tk.LAUNCHES["merge_tables_kernel"],
-        "cap_reruns": rep.get("cap-rerun", {}).get("calls", 0),
+        "run_table_launches": tables, "cap_reruns": reruns,
         "wall_s": wall, "launches": launches,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "gpu": gpu_line()}))
@@ -3184,26 +3242,13 @@ def phase_table_merge(dev):
     floor_s = ((live_acc + live_one) * 16 + cap * 16) / MEM_BYTES_PER_S
     floor_all_s = (rows_in + cap) * 16 / MEM_BYTES_PER_S
 
-    def event_ms(fn, runs):
-        times = []
-        for _ in range(runs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-            del out
-        return float(np.median(times)), times
-
     tk.reset_launches()
     t0 = time.perf_counter()
     got = tk.merge_tables(tables, cap)  # the first call builds the library
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
-    kernel_ms, kernel_runs = event_ms(lambda: tk.merge_tables(tables, cap), 7)
+    kernel_ms, kernel_runs = call_ms(lambda: tk.merge_tables(tables, cap), 7)
     kernel_peak = torch.cuda.max_memory_allocated(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -3226,7 +3271,7 @@ def phase_table_merge(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    plain_ms, plain_runs = event_ms(
+    plain_ms, plain_runs = call_ms(
         lambda: kmers.merge_hash_tables(keys_in, cnt_in, cap), 2)
     plain_peak = torch.cuda.max_memory_allocated(dev)
     want = kmers.merge_hash_tables(keys_in, cnt_in, cap)
@@ -3282,13 +3327,15 @@ def phase_kmer_spectrum(dev):
     (ops/kmers._pass_keys) equals the whole block's canonical keys at
     the pass's positions, and its plain version on the same words and
     ends; kmer_spectrum equals the benchmark's plain reference, one
-    canonical launch a pass, counted from 0 just before it; the default
-    cap reruns to the same spectrum.  Returns kmer_spectrum's
+    canonical launch and one run table launch a pass, counted from 0
+    just before it; the default cap reruns to the same spectrum, a run
+    table launch a pass each rerun.  Returns kmer_spectrum's
     launches."""
     import bionumpy_tpu_torch as bt
     from bionumpy_tpu_torch import instrument
     from bionumpy_tpu_torch.ops import kmer_kernels as kk
     from bionumpy_tpu_torch.ops import kmers, resident
+    from bionumpy_tpu_torch.ops import table_kernels as tk
     from portbench import kmer_spectrum_reference as ref
     from portbench import traffic
     t0 = time.perf_counter()
@@ -3364,12 +3411,20 @@ def phase_kmer_spectrum(dev):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             kk.reset_launches()
+            tk.reset_launches()
             instrument.reset()
             t = time.perf_counter()
             h = bt.kmer_spectrum(seqs, 21, max_count=10000, device=dev, **kw)
             wall = time.perf_counter() - t
-            return h, wall, dict(kk.LAUNCHES), instrument.report(), \
-                torch.cuda.max_memory_allocated(dev)
+            rep = instrument.report()
+            reruns = rep.get("cap-rerun", {}).get("calls", 0)
+            tables = tk.LAUNCHES["run_table_kernel"]
+            if tables != len(passes) * (1 + reruns):
+                raise AssertionError(f"kmer_spectrum: {tables} run_table "
+                                     f"launches for {len(passes)} passes, "
+                                     f"{reruns} cap reruns")
+            return h, wall, {**kk.LAUNCHES, "run_table_kernel": tables}, \
+                rep, torch.cuda.max_memory_allocated(dev)
 
         spectrum(cap=1 << 28)  # the warm-up job of the cell
         h, wall, launches, rep, peak = spectrum(cap=1 << 28)
@@ -3379,7 +3434,8 @@ def phase_kmer_spectrum(dev):
                 rep["D2H"]["bytes"] != 8 * 10001:
             raise AssertionError(f"kmer_spectrum: {launches} for "
                                  f"{len(passes)} passes, {rep}")
-        h_default, wall_default, _, rep_default, peak_default = spectrum()
+        h_default, wall_default, launches_default, rep_default, \
+            peak_default = spectrum()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3411,6 +3467,9 @@ def phase_kmer_spectrum(dev):
         "passes_inside_a_word": sum(map(bool, offsets)),
         "canonical_launches": launches["kmer_keys_kernel.canonical"],
         "forward_launches": launches["kmer_keys_kernel"],
+        "run_table_launches": launches["run_table_kernel"],
+        "default_cap_run_table_launches":
+            launches_default["run_table_kernel"],
         "distinct": n_distinct, "h1": int(h[1]),
         "peak_bin": int(np.argmax(h[5:])) + 5,
         "wall_s": wall, "peak_device_bytes": peak,
@@ -3423,6 +3482,76 @@ def phase_kmer_spectrum(dev):
         "count_kmers_peak_device_bytes": peak_table,
         "reference_s": ref_s, "gpu": gpu_line()}))
     return launches
+
+
+def phase_run_table(dev):
+    """The run table kernel against its plain version and its byte floor,
+    at a table pass's shape and at kmer31-resident's (module docstring,
+    phase 25)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bionumpy_tpu_torch.ops import _build, table_kernels as tk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    tk.build()
+    kernels = ptxas_report(_build.LOGS.get("tables", "")) or \
+        "library current"
+
+    def sorted_keys(n, n_live, distinct):
+        keys = torch.randint(0, distinct, (n,), generator=gen, device=dev)
+        keys[n_live:] = SENTINEL
+        return torch.sort(keys)[0]
+
+    shapes = []
+    # a pass of kmer21-spectrum-dm6 (~1.2e8 distinct of ~2.4e8 windows);
+    # kmer31-resident's 2^26-key bucket, 39.3 M live, ~10 M distinct
+    for name, n, n_live, distinct, rows_list in [
+            ("pass", 1 << 28, (1 << 28) - (1 << 24), 145_000_000, None),
+            ("kmer31-resident", 1 << 26, 39_321_600, 10_200_000,
+             [1 << 20, 1 << 24])]:
+        s = sorted_keys(n, n_live, distinct)
+        n_valid = int((s != SENTINEL).sum())
+        n_unique = int(torch.unique_consecutive(s[:n_valid]).numel())
+        for rows in rows_list or [n, n_unique // 2]:
+            tk.reset_launches()
+            got = tk.run_table(s, rows)
+            torch.cuda.synchronize()
+            launches = tk.LAUNCHES["run_table_kernel"]
+            want = tk.run_table_plain(s, rows)
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            del got, want
+            if launches != 1:
+                raise AssertionError(f"run_table launched "
+                                     f"{launches} times for one table")
+            if not equal:
+                raise AssertionError(f"run_table_kernel differs from its "
+                                     f"plain version: {name}, rows {rows}")
+            kernel_ms, kernel_runs = call_ms(lambda: tk.run_table(s, rows),
+                                              7)
+            plain_ms, _ = call_ms(lambda: tk.run_table_plain(s, rows), 3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    tk.run_table(s, rows)
+                torch.cuda.synchronize()
+            by_kernel = {
+                e.key: round(getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0))
+                             / 3 / 1e3, 4)
+                for e in prof.key_averages()
+                if "run_table" in e.key}
+            floor_ms = (n_valid * 8 + rows * 16) / MEM_BYTES_PER_S * 1e3
+            shapes.append({
+                "shape": name, "keys": n, "n_valid": n_valid,
+                "n_unique": n_unique, "rows": rows, "equal_to_plain": equal,
+                "kernel_ms": round(kernel_ms, 4),
+                "kernel_ms_runs": [round(t, 4) for t in kernel_runs],
+                "device_ms_by_kernel": by_kernel,
+                "byte_floor_ms": round(floor_ms, 4),
+                "of_floor": round(kernel_ms / floor_ms, 3),
+                "plain_ms": round(plain_ms, 3), "launches": launches})
+        del s
+        torch.cuda.empty_cache()
+    log("[run-table] " + json.dumps({"shapes": shapes, "ptxas": kernels,
+                                     "gpu": gpu_line()}))
 
 
 def run_phase(name: str, phase, *args):
@@ -3501,6 +3630,7 @@ def main() -> int:
     table_launches = run_phase("table-passes", phase_table_passes, dev)
     run_phase("table-merge", phase_table_merge, dev)
     spectrum_launches = run_phase("kmer-spectrum", phase_kmer_spectrum, dev)
+    run_phase("run-table", phase_run_table, dev)
     rows[0]["launches"] = job_launches["kmer_keys_kernel"]
     rows[0]["launches_by_path"] = {
         "job": job_launches["kmer_keys_kernel"],

@@ -1,16 +1,23 @@
-"""The merge of sorted sentinel tables (ops/table_kernels): its plain
-version against an independent NumPy two-pointer merge, the wrapper's
-checks and its CPU route, and fold_tables through it, against the fold
-as it was written over merge_hash_tables of the concatenated tables.
-The kernel itself runs in tests/test_torch_table_passes_card.py."""
+"""The device table's kernels (ops/table_kernels) on the CPU.  The merge
+of sorted sentinel tables: its plain version against an independent
+NumPy two-pointer merge, the wrapper's checks and its CPU route, and
+fold_tables through it, against the fold as it was written over
+merge_hash_tables of the concatenated tables.  The run table of sorted
+keys: its plain version against a NumPy run-length encoding, the
+wrapper's checks and its CPU route, and sentinel_table and whole_table
+through it, against the compositions they were written as and against
+the JAX package.  The kernels themselves run in
+tests/test_torch_table_passes_card.py."""
 import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bionumpy_tpu.ops import kmers as jkmers
 from bionumpy_tpu_torch import instrument
 from bionumpy_tpu_torch.ops import kmers, table_kernels as tk
 
@@ -144,7 +151,7 @@ def test_the_wrapper_takes_the_plain_version_for_cpu_tensors():
     tk.reset_launches()
     got = tk.merge_tables(_torch(tables), cap)
     want = tk.merge_tables_plain(_torch(tables), cap)
-    assert tk.LAUNCHES == {"merge_tables_kernel": 0}
+    assert tk.LAUNCHES == {"merge_tables_kernel": 0, "run_table_kernel": 0}
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     one = tk.merge_tables(_torch(tables[:1]), 5)
@@ -273,3 +280,212 @@ def test_the_module_merges_on_the_cpu_without_nvcc(tmp_path):
     # sentinel's row
     assert proc.stdout.split() == ["[2,", "2,", "3,", "3,", "0]", "BUILD",
                                    "True"]
+
+
+def run_length(s, rows):
+    """(keys, counts, meta) of a NumPy run-length encoding of the sorted
+    keys `s` below the sentinel, in `rows` rows padded with (S, 0); past
+    `rows` runs the last row's count is 0 less its run's start, the JAX
+    package's truncation."""
+    live = s[s != S]
+    uniq, counts = np.unique(live, return_counts=True)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    out_k = np.full(rows, S, np.int64)
+    out_c = np.zeros(rows, np.int64)
+    m = min(len(uniq), rows)
+    out_k[:m], out_c[:m] = uniq[:m], counts[:m]
+    if len(uniq) > rows > 0:
+        out_c[rows - 1] = -starts[rows - 1]
+    return out_k, out_c, np.array([len(uniq), len(live)], np.int64)
+
+
+TILE = 2048  # the kernel's keys a tile
+
+
+def _sorted_case(name, rng):
+    """Sorted int64 keys of one named case (the sentinel last)."""
+    if name == "all-sentinel":
+        s = np.full(5000, S)
+    elif name == "no-sentinel":
+        s = rng.integers(0, 1 << 40, 7000)
+    elif name == "one-key":
+        s = np.array([42])
+    elif name == "one-key-and-sentinels":
+        s = np.array([42] + [S] * 9)
+    elif name == "all-equal":
+        s = np.full(6000, 9)
+    elif name == "runs-of-one":
+        s = np.concatenate([np.arange(5000) * 3, np.full(300, S)])
+    elif name == "runs-past-tiles":  # runs of 2.5-4.5 tiles
+        lengths = rng.integers(5000, 9000, 6)
+        s = np.concatenate([np.repeat(rng.choice(1 << 30, 6, replace=False),
+                                      lengths), np.full(1234, S)])
+    elif name == "odd-n":  # not a multiple of a tile, runs of 1-6
+        s = rng.integers(0, 2000, 3 * TILE + 777)
+        s[rng.random(len(s)) < 0.1] = S
+    elif name == "extremes":  # the least int64, 0 and the key below S
+        s = np.concatenate([[-(1 << 63), -1, 0, 0, S - 1, S - 1],
+                            rng.integers(-(1 << 62), 1 << 62, 500), [S]])
+    else:
+        raise KeyError(name)
+    return np.sort(np.asarray(s, np.int64))
+
+
+RUN_CASES = ["all-sentinel", "no-sentinel", "one-key", "one-key-and-sentinels",
+             "all-equal", "runs-of-one", "runs-past-tiles", "odd-n",
+             "extremes"]
+
+
+def _rows(kind, s):
+    """The rows of one kind for keys `s`: every key, above, at or below
+    the runs, or one row."""
+    n, n_unique = len(s), len(np.unique(s[s != S]))
+    rows = {"all": n, "above": min(n, n_unique + 3),
+            "equal": max(1, n_unique), "below": max(1, n_unique - 1),
+            "one": 1}[kind]
+    assert 0 < rows <= n
+    return rows
+
+
+@pytest.mark.parametrize("kind", ["all", "above", "equal", "below", "one"])
+@pytest.mark.parametrize("name", RUN_CASES)
+def test_plain_run_table_matches_a_run_length_encoding(name, kind):
+    s = _sorted_case(name, np.random.default_rng(sum(map(ord, name))))
+    rows = _rows(kind, s)
+    keys, counts, meta = tk.run_table_plain(torch.from_numpy(s.copy()), rows)
+    want_k, want_c, want_meta = run_length(s, rows)
+    assert keys.dtype == counts.dtype == meta.dtype == torch.int64
+    assert keys.shape == counts.shape == (rows,) and meta.shape == (2,)
+    np.testing.assert_array_equal(keys.numpy(), want_k)
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    np.testing.assert_array_equal(meta.numpy(), want_meta)
+    if want_meta[0] > rows:  # the truncated last row, as before
+        assert int(counts[-1]) <= 0
+
+
+def test_run_table_takes_the_plain_version_for_cpu_tensors():
+    s = torch.from_numpy(_sorted_case("odd-n", np.random.default_rng(3)))
+    tk.reset_launches()
+    instrument.reset()
+    got = tk.run_table(s, 1000)
+    rep = instrument.report()
+    want = tk.run_table_plain(s, 1000)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tk.LAUNCHES == {"merge_tables_kernel": 0, "run_table_kernel": 0}
+    assert rep["run-table"]["calls"] == 1
+    assert rep["run-table"]["rows"] == s.numel()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "device", "contiguous", "2-d",
+                                 "rows-past", "rows-negative"])
+def test_run_table_refuses_what_the_kernel_does_not_take(bad):
+    s, rows = torch.arange(16, dtype=torch.int64), 8
+    if bad == "dtype":
+        s = s.to(torch.int32)
+    elif bad == "device":  # a device without the kernel
+        s = torch.empty(16, dtype=torch.int64, device="meta")
+    elif bad == "contiguous":
+        s = torch.arange(32, dtype=torch.int64)[::2]
+    elif bad == "2-d":
+        s = s.reshape(4, 4)
+    elif bad == "rows-past":
+        rows = 17
+    else:
+        rows = -1
+    with pytest.raises(ValueError):
+        tk.run_table(s, rows)
+
+
+def _old_sentinel_table(keys, cap):
+    """sentinel_table as it was written before the run table: the sort's
+    runs compacted by heads_first, counts from the run starts."""
+    uniq, run_starts, n_unique, n_valid = kmers.sorted_runs_from_keys(
+        keys, min(cap, keys.numel()))
+    rows = run_starts.numel()
+    cnt = kmers.counts_from_runs(run_starts, n_unique, n_valid, rows)
+    live = torch.arange(rows) < n_unique
+    return (torch.where(live, uniq, S), cnt, torch.stack([n_unique, n_valid]))
+
+
+def _old_whole_table(keys, cap):
+    """whole_table as it was written before the run table."""
+    s, _, is_start, n_unique, n_valid = kmers.sort_runs(keys)
+
+    def compacted(rows):
+        uniq, run_starts = kmers.compact_runs(s, is_start, rows)
+        return uniq, kmers.counts_from_runs(run_starts, n_unique, n_valid,
+                                            rows)
+
+    rows = min(cap, keys.numel())
+    uniq, counts = compacted(rows)
+    n = int(n_unique)
+    if n > rows:
+        uniq, counts = compacted(min(kmers.bucket_size(n, 1), keys.numel()))
+    return uniq[:n], counts[:n], torch.stack([n_unique, n_valid])
+
+
+def _unsorted_keys(seed, n=20_000, hi=6000, share=0.25):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, hi, n)
+    keys[rng.random(n) < share] = S
+    return torch.from_numpy(keys)
+
+
+@pytest.mark.parametrize("cap", [1 << 20, 20_000, 5600, 4000, 1])
+@pytest.mark.parametrize("table", ["sentinel_table", "whole_table"])
+def test_tables_through_the_run_table_are_the_tables_of_before(
+        monkeypatch, table, cap):
+    seen = []
+
+    def spy(sorted_keys, rows):
+        seen.append(rows)
+        return tk.run_table(sorted_keys, rows)
+
+    monkeypatch.setattr(kmers, "run_table", spy)
+    keys = _unsorted_keys(11)
+    instrument.reset()
+    got = getattr(kmers, table)(keys, cap)
+    rep = instrument.report()
+    old = _old_sentinel_table if table == "sentinel_table" \
+        else _old_whole_table
+    want = old(keys, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    n_unique = int(want[2][0])
+    rows = min(cap, keys.numel())
+    # whole_table compacts again from the same sort past `rows`
+    again = table == "whole_table" and n_unique > rows
+    assert seen == [rows] + ([min(kmers.bucket_size(n_unique, 1),
+                                  keys.numel())] if again else [])
+    assert rep["sort"]["calls"] == 1
+    assert rep["run-table"]["calls"] == len(seen)
+    assert rep.get("cap-rerun", {}).get("calls", 0) == again
+
+
+@pytest.mark.parametrize("k,cap", [(9, 1 << 14), (13, 500)])
+def test_sentinel_table_through_the_run_table_matches_jax(monkeypatch, k,
+                                                           cap):
+    rng = np.random.default_rng(k)
+    lengths = rng.integers(0, 90, 200)
+    flat = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    words, ends, n = kmers.prepare_packed(flat, lengths)
+    lo, hi, cnt, meta = jkmers.kmer_sentinel_table_packed(
+        jnp.asarray(words), jnp.asarray(ends), k, n, cap)
+    calls = []
+    monkeypatch.setattr(kmers, "run_table",
+                        lambda s, rows: calls.append(rows)
+                        or tk.run_table(s, rows))
+    keys, counts, tmeta = kmers.kmer_sentinel_table_packed(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(ends), k,
+        n, cap)
+    jkeys = np.where((np.asarray(lo) == 0xFFFFFFFF)
+                     & (np.asarray(hi) == 0xFFFFFFFF), S,
+                     np.asarray(lo).astype(np.int64)
+                     | (np.asarray(hi).astype(np.int64) << 32))
+    assert len(calls) == 1
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(cnt))
+    np.testing.assert_array_equal(tmeta.numpy(), np.asarray(meta))
+    if cap == 500:
+        assert int(tmeta[0]) > cap

@@ -8,8 +8,11 @@ at sizes that cross many tiles, and the chunked GC job, which folds
 through it, equals the same job in one chunk.  Canonical tables
 (count_kmers(..., canonical=True)) on the card equal the CPU's, one pass
 and in passes, and kmer_spectrum over ~1.08 G bases of reads, in passes,
-equals the benchmark's plain reference on the card.  This file imports
-neither JAX nor the JAX package:
+equals the benchmark's plain reference on the card.  The run table
+kernel (table_kernels.run_table) equals its plain version bit for bit on
+random, adversarial and 2^28-key sorted keys, rows past the runs
+included; it launches once a table, and the tables and spectra it makes
+equal the CPU's.  This file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_table_passes_card.py
@@ -312,3 +315,146 @@ def test_spectrum_of_a_gigabase_of_reads_on_card_equals_reference(cuda):
     # an error mass at count 1 and a genomic peak near 30 x 130/150
     assert got[0] == 0 and got[1] > got[5]
     assert 15 < int(np.argmax(got[5:])) + 5 < 35
+
+
+def _sorted_keys(name, dev):
+    """Sorted int64 keys of one named case on the card (the sentinel
+    last), across many tiles of 2048 keys."""
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+
+    def rand(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev)
+
+    def sentinels(n):
+        return torch.full((n,), S, dtype=torch.int64, device=dev)
+
+    if name == "random":
+        keys = rand(3_000_000, 0, 1 << 21)
+        keys[rand(3_000_000, 0, 10) == 0] = S
+    elif name == "distinct":  # no sentinel, runs of one
+        keys = rand(2_500_000, 0, 1 << 62)
+    elif name == "all-sentinel":
+        keys = sentinels(1_000_003)
+    elif name == "one-key":
+        keys = torch.tensor([42], device=dev)
+    elif name == "one-run":  # one run over ~490 tiles, then sentinels
+        keys = torch.cat([torch.full((1_000_000,), 7, device=dev),
+                          sentinels(77)])
+    elif name == "runs-past-tiles":  # runs of 2-60 tiles
+        lengths = rand(40, 4096, 120_000)
+        keys = torch.repeat_interleave(rand(40, 0, 1 << 40), lengths)
+    elif name == "tile-edges":  # runs of 2047, 2048 and 2049 keys
+        lengths = torch.tensor([2047, 2048, 2049] * 300, device=dev)
+        keys = torch.repeat_interleave(torch.arange(900, device=dev) * 5,
+                                       lengths)
+    elif name == "warp-edges":  # runs of 31, 32, 33 and 256 keys
+        lengths = torch.tensor([31, 32, 33, 256] * 5000, device=dev)
+        keys = torch.repeat_interleave(torch.arange(20_000, device=dev),
+                                       lengths)
+        keys = torch.cat([keys, sentinels(5)])
+    elif name == "extremes":
+        edge = torch.tensor([-(1 << 63), -1, 0, S - 1, S - 1], device=dev)
+        keys = torch.cat([edge, rand(1_000_000, -(1 << 62), 1 << 62),
+                          sentinels(3)])
+    elif name == "pass-2^28":  # a pass of 2^28 keys, about half distinct
+        keys = rand(1 << 28, 0, 145_000_000)
+        keys[rand(1 << 28, 0, 16) == 0] = S
+    else:
+        raise KeyError(name)
+    return torch.sort(keys)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "random", "distinct", "all-sentinel", "one-key", "one-run",
+    "runs-past-tiles", "tile-edges", "warp-edges", "extremes", "pass-2^28"])
+def test_run_table_kernel_equals_its_plain_version(cuda, name):
+    s = _sorted_keys(name, cuda)
+    n = s.numel()
+    n_unique = int(torch.unique_consecutive(s[s != S]).numel())
+    # every key; above, at and below the runs (the truncated last row)
+    for rows in sorted({n, min(n, n_unique + 3), max(1, n_unique),
+                        max(1, n_unique // 2), 1}):
+        table_kernels.reset_launches()
+        got = table_kernels.run_table(s, rows)
+        torch.cuda.synchronize()
+        assert table_kernels.LAUNCHES["run_table_kernel"] == 1
+        want = table_kernels.run_table_plain(s, rows)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.int64
+            assert g.device == s.device
+            assert torch.equal(g, w), (name, rows)
+        assert int(got[2][0]) == n_unique
+        del got, want
+
+
+@pytest.mark.cuda
+def test_run_table_launches_once_a_pass(cuda, monkeypatch):
+    """count_minimizers in forced small passes: one run table launch a
+    pass (`table-pass`, `run-table`), the table the CPU's."""
+    flat, lengths = _genome(43)
+    lengths = lengths[lengths.cumsum() <= 4_000_000]  # the first rows
+    flat = flat[:int(lengths.sum())]
+    want = _count(_seqs(flat, lengths), "count_minimizers", 15, 24, "cpu")
+    monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 1 << 21)
+    monkeypatch.setattr(kmers, "TABLE_PASS_POSITIONS", 1 << 19)
+    seqs = _seqs(flat, lengths)
+    n_passes = len(kmers.table_passes(resident.device_seq_blocks(seqs,
+                                                                 cuda)))
+    assert n_passes >= 3
+    table_kernels.reset_launches()
+    instrument.reset()
+    got = _count(seqs, "count_minimizers", 15, 24, cuda)
+    rep = instrument.report()
+    np.testing.assert_array_equal(got.label_codes, want.label_codes)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert table_kernels.LAUNCHES["run_table_kernel"] == n_passes == \
+        rep["table-pass"]["calls"] == rep["run-table"]["calls"]
+    assert rep["run-table"]["rows"] == rep["table-pass"]["rows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["count_kmers", "count_minimizers",
+                                 "kmer_spectrum"])
+def test_tables_through_the_run_table_on_card_equal_cpu(cuda, monkeypatch,
+                                                       job):
+    """count_kmers over one block (a whole table past its first cap: two
+    run table launches from one sort), count_minimizers and kmer_spectrum
+    in passes: the tables and spectra the CPU's plain versions give."""
+    rng = np.random.default_rng(len(job))
+    lengths = rng.integers(100, 200, 20_000)
+    flat = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+    # every fifth read again, so keys repeat
+    flat = np.concatenate([flat, flat[:int(lengths[:4000].sum())]])
+    lengths = np.concatenate([lengths, lengths[:4000]])
+
+    def run(device):
+        seqs = _seqs(flat, lengths)
+        if job == "count_kmers":
+            return bt.count_kmers(seqs, 31, device=device)
+        if job == "count_minimizers":
+            return bt.count_minimizers(seqs, 15, 24, cap=1 << 22,
+                                       device=device)
+        return bt.kmer_spectrum(seqs, 21, max_count=10000, device=device)
+
+    want = run("cpu")
+    if job != "count_kmers":
+        monkeypatch.setattr(kmers, "MAX_PACKED_BASES", 1 << 21)
+        monkeypatch.setattr(kmers, "TABLE_PASS_POSITIONS", 1 << 19)
+    table_kernels.reset_launches()
+    instrument.reset()
+    got = run(cuda)
+    rep = instrument.report()
+    launches = table_kernels.LAUNCHES["run_table_kernel"]
+    if job == "kmer_spectrum":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_array_equal(got.label_codes, want.label_codes)
+        np.testing.assert_array_equal(got.counts, want.counts)
+    if job == "count_kmers":
+        # ~2.4 M distinct 31-mers pass count_kmers' first cap, 2^20
+        assert len(got.counts) > 1 << 20
+        assert launches == 2 and rep["cap-rerun"]["calls"] == 1
+    else:
+        assert launches == rep["table-pass"]["calls"] >= 3
+    assert launches == rep["run-table"]["calls"]
