@@ -86,32 +86,41 @@ def fetch_rows(*parts: torch.Tensor, rows: int) -> np.ndarray:
     NumPy view of it: the view (and every slice or view taken of it)
     holds the block, which returns to the allocator's cache when the
     last of them dies, for the next fetch of its size class to take
-    with its pages already mapped.  Counted as `fetch-pinned` (bytes),
-    and as `fetch-host-alloc` when the allocator had to lock a new
-    block.  A smaller fetch, and a CPU tensor, take a pageable copy."""
+    with its pages already mapped.  Taking the block is the `fetch-alloc`
+    span (bytes), closed before `D2H` opens, so that `D2H` holds the
+    copy and its wait alone; under it `fetch-host-alloc` counts the
+    takings for which the allocator had to lock a new block.  The copy
+    counts as `fetch-pinned` (bytes).  A smaller fetch, and a CPU
+    tensor, take a pageable copy and open no `fetch-alloc`."""
     flat = parts[0].to(torch.int64) if len(parts) == 1 else \
         torch.cat([p.to(torch.int64) for p in parts])
     n_bytes = 8 * flat.numel()
-    with stage("D2H", n_bytes=n_bytes, rows=rows, device=flat.is_cuda):
-        if not flat.is_cuda or n_bytes < PINNED_MIN_BYTES:
+    if not flat.is_cuda or n_bytes < PINNED_MIN_BYTES:
+        with stage("D2H", n_bytes=n_bytes, rows=rows, device=flat.is_cuda):
             return flat.cpu().numpy()
-        return _fetch_pinned(flat, n_bytes)
+    with stage("fetch-alloc", n_bytes=n_bytes):
+        dst = _pinned_block(flat.numel())
+    with stage("D2H", n_bytes=n_bytes, rows=rows, device=True):
+        add("fetch-pinned", 0.0, n_bytes=n_bytes)
+        dst.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+    return dst.numpy()
 
 
 def _host_allocs() -> int:
-    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+    # the nested dict: host_memory_stats() flattens and sorts it, ~4x the
+    # time (43 against 11 us on an H100's host), twice a fetch
+    return torch.cuda.host_memory_stats_as_nested_dict().get(
+        "num_host_alloc", 0)
 
 
-def _fetch_pinned(flat: torch.Tensor, n_bytes: int) -> np.ndarray:
-    """`flat` copied into a page-locked block on the current stream,
-    waited for on that stream alone."""
+def _pinned_block(n: int) -> torch.Tensor:
+    """An int64 page-locked host tensor of `n` elements from the caching
+    host allocator, counted as `fetch-host-alloc` when the allocator
+    locked a new block for it (read only while instrumentation is on)."""
     counted = instrument.ENABLED
     before = _host_allocs() if counted else 0
-    dst = torch.empty(flat.numel(), dtype=torch.int64, pin_memory=True)
-    if counted:
-        add("fetch-pinned", 0.0, n_bytes=n_bytes)
-        if _host_allocs() > before:
-            add("fetch-host-alloc", 0.0, n_bytes=n_bytes)
-    dst.copy_(flat, non_blocking=True)
-    torch.cuda.current_stream(flat.device).synchronize()
-    return dst.numpy()
+    dst = torch.empty(n, dtype=torch.int64, pin_memory=True)
+    if counted and _host_allocs() > before:
+        add("fetch-host-alloc", 0.0, n_bytes=8 * n)
+    return dst

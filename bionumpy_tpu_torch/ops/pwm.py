@@ -6,10 +6,10 @@ the match positions and never the scores.  pwm_scan_matches scans a
 resident batch: for windows up to the kernel's 32 with one launch of
 the kernel in match mode, which applies the threshold and the row-end
 mask and compacts the matches itself, so neither scores nor masks are
-written (`pwm-scan`, rows: positions scored; the `pwm-fused` counter),
-then one wait for the match count (`D2H-meta`) and a sort of the
-matches (`pwm-compact`, rows: matches).  Wider windows are scored from
-the codes SCAN_POSITIONS positions at a time and masked by torch ops,
+written (`pwm-scan`, rows: positions scored, one span a launch), then
+one wait for the match count (`D2H-meta`) and a sort of the matches
+(`pwm-compact`, rows: matches).  Wider windows are scored from the
+codes SCAN_POSITIONS positions at a time and masked by torch ops,
 and each block's matches are compacted at their count, after one wait
 for it (`D2H-meta`).  The two routes give the same positions, bit for
 bit, since both score in the same float32 order.  On hg38 (3.09 G
@@ -134,22 +134,20 @@ def pwm_scan_matches(words: torch.Tensor, ends: torch.Tensor,
 def _fused_scan(words, ends, n_true, matrix, window_size, threshold, cap,
                 base):
     """One match-mode launch over the batch's positions below n_true
-    rounded up to a word (`pwm-scan`, rows: positions scored; counted as
-    `pwm-fused`), one wait for its match count (`D2H-meta`), and, when
-    more than `cap` matched, one more launch at the exact count
-    (`cap-rerun`).  The kernel writes its matches in no fixed order, so
-    they are sorted (`pwm-compact`, rows: matches)."""
+    rounded up to a word (`pwm-scan`, rows: positions scored), one wait
+    for its match count (`D2H-meta`), and, when more than `cap` matched,
+    one more launch at the exact count (`cap-rerun`).  The kernel writes
+    its matches in no fixed order, so they are sorted (`pwm-compact`,
+    rows: matches)."""
     on_card = words.is_cuda
     n_scan = -(-n_true // WORD_BASES) * WORD_BASES
     scan = words[: n_scan // WORD_BASES + 2]  # no bucket padding scored
 
     def launch(cap):
         with stage("pwm-scan", rows=n_scan, device=on_card):
-            found = pwm_kernels.pwm_matches(scan, ends, n_true, matrix,
-                                            window_size, threshold, cap,
-                                            base)
-        add("pwm-fused", 0.0, rows=n_scan)
-        return found
+            return pwm_kernels.pwm_matches(scan, ends, n_true, matrix,
+                                           window_size, threshold, cap,
+                                           base)
 
     positions, n_matches = launch(cap)
     with stage("D2H-meta", device=on_card):

@@ -132,7 +132,8 @@ class PositionWeightMatrix(RollableFunction):
 
 
 def _device_matrix(pwm: PWM, device) -> torch.Tensor:
-    """The PWM as the (4, w) float32 matrix the packed scans take."""
+    """The PWM as the (4, w) float32 matrix the packed scans take: on
+    the card a pageable copy, which waits for the stream."""
     matrix = np.zeros((4, pwm.window_size), np.float32)
     matrix[: pwm.matrix.shape[0]] = pwm.matrix  # codes stay below the rows
     return torch.from_numpy(matrix).to(device)
@@ -175,10 +176,12 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
     `threshold`, for a 4-letter alphabet: the scores never leave the
     device, and the match positions are compacted there
     (ops/pwm.pwm_scan_matches), so the copy to the host holds the
-    matches only.  Windows up to 32 take one launch of kernel 3 in match
-    mode a resident block, and one more at the exact count where a block
-    has more than `cap` matches; wider windows are scored block by block
-    of 2^27 positions, each block compacted at its match count.  An
+    matches only; their rows and in-row positions are made on the host
+    (the `result` span, rows: the matches).  Windows up to 32 take one
+    launch of kernel 3 in match mode a resident block, and one more at
+    the exact count where a block has more than `cap` matches; wider
+    windows are scored block by block of 2^27 positions, each block
+    compacted at its match count.  An
     array of more than 2^31 bases is held as resident blocks of whole
     rows (ops/resident.device_seq_blocks).  The check that the array's
     codes lie inside the PWM's alphabet reads them once per array and
@@ -214,7 +217,8 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
     if pwm.matrix.shape[0] != 4 or not _four_letters(sequence, pwm):
         raise ValueError("device motif matching needs a 4-letter alphabet")
     blocks = resident.device_seq_blocks(sequence, device)
-    matrix = _device_matrix(pwm, blocks[0].words.device)
+    with stage("pwm-matrix"):
+        matrix = _device_matrix(pwm, blocks[0].words.device)
     parts, base = [], 0
     for ds in blocks:
         found, cap = pwm_scan_matches(ds.words, ds.ends, ds.lengths, ds.n,
@@ -224,11 +228,12 @@ def get_motif_matches(sequence, pwm: PWM, threshold: float,
         base += ds.n
     n = sum(p.numel() for p in parts)
     flat = fetch_rows(*parts, rows=n) if parts else np.empty(0, np.int64)
-    lengths = np.concatenate([ds.lengths for ds in blocks])
-    starts = np.insert(np.cumsum(lengths), 0, 0)
-    row = np.searchsorted(starts, flat, side="right") - 1
-    return RaggedArray((flat - starts[row]).astype(np.int64),
-                       np.bincount(row, minlength=len(lengths)))
+    with stage("result", rows=n):
+        lengths = np.concatenate([ds.lengths for ds in blocks])
+        starts = np.insert(np.cumsum(lengths), 0, 0)
+        row = np.searchsorted(starts, flat, side="right") - 1
+        return RaggedArray((flat - starts[row]).astype(np.int64),
+                           np.bincount(row, minlength=len(lengths)))
 
 
 def get_motif_scores(sequence, pwm: PWM, device=None) -> RaggedArray:

@@ -83,6 +83,7 @@ def test_fetch_rows(case):
     assert rep["D2H"]["calls"] == 2
     # the CPU takes no page-locked path
     assert "fetch-pinned" not in rep and "fetch-host-alloc" not in rep
+    assert "fetch-alloc" not in rep
 
 
 @pytest.fixture
@@ -127,9 +128,11 @@ def test_large_fetch_is_page_locked_small_is_not(cuda):
     assert np.array_equal(big, x.cpu().numpy())
     assert np.array_equal(small, big[: small.size])
     rep = instrument.report()
-    assert rep["fetch-pinned"]["calls"] == 1
-    assert rep["fetch-pinned"]["bytes"] == big.nbytes
+    assert rep["fetch-pinned"]["calls"] == rep["fetch-alloc"]["calls"] == 1
+    assert rep["fetch-pinned"]["bytes"] == rep["fetch-alloc"]["bytes"] == \
+        big.nbytes
     assert rep.get("fetch-host-alloc", {"calls": 0})["calls"] <= 1
+    assert rep["D2H"]["calls"] == 2  # the pageable one opens no block
 
 
 @pytest.mark.cuda
@@ -155,9 +158,44 @@ def test_dropped_block_is_recycled(cuda):
     y = large(cuda, seed=8)
     out = fetch_rows(y, rows=y.numel())
     rep = instrument.report()
-    assert rep["fetch-pinned"]["calls"] == 1
+    assert rep["fetch-pinned"]["calls"] == rep["fetch-alloc"]["calls"] == 1
     assert "fetch-host-alloc" not in rep
     assert np.array_equal(out, y.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fetch_alloc_span_names_the_block(cuda):
+    """A page-locked fetch opens one `fetch-alloc` span, with the fetch's
+    bytes, closed before its `D2H` opens; a block newly locked counts
+    as `fetch-host-alloc` under it, the copy as `fetch-pinned` under
+    `D2H`.  Results are held until the allocator has to lock one."""
+    x = large(cuda)
+    held = []
+    for _ in range(64):
+        held.append(fetch_rows(x, rows=x.numel()))
+        if "fetch-host-alloc" in instrument.report():
+            break
+    rep = instrument.report()
+    n = len(held)
+    assert rep["fetch-host-alloc"]["calls"] >= 1
+    assert rep["fetch-alloc"]["calls"] == rep["fetch-pinned"]["calls"] == \
+        rep["D2H"]["calls"] == n
+    assert rep["fetch-alloc"]["bytes"] == n * x.numel() * 8
+    spans = instrument.spans()
+    parents = {name: {s["parent"] for s in spans if s["name"] == name}
+               for name in ("fetch-alloc", "fetch-host-alloc",
+                            "fetch-pinned", "D2H")}
+    assert parents == {"fetch-alloc": {None}, "fetch-host-alloc":
+                       {"fetch-alloc"}, "fetch-pinned": {"D2H"},
+                       "D2H": {None}}
+    allocs = [s for s in spans if s["name"] == "fetch-alloc"]
+    copies = [s for s in spans if s["name"] == "D2H"]
+    for alloc, d2h in zip(allocs, copies):
+        assert alloc["end"] <= d2h["start"]
+    assert all(np.array_equal(h, held[0]) for h in held)
+    # a pageable fetch takes no block
+    fetch_rows(x[:10], rows=10)
+    assert instrument.report()["fetch-alloc"]["calls"] == n
 
 
 @pytest.mark.cuda

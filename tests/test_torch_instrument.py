@@ -1,6 +1,7 @@
 """bionumpy_tpu_torch.instrument: nesting and self time, call ids across
-threads, counts on spans, the cap-rerun counter, the fetch counters
-(fetch-pinned, fetch-host-alloc), the no-op switch, the
+threads, counts on spans, the cap-rerun counter, the page-locked fetch's
+`fetch-alloc` span and counters (fetch-pinned, fetch-host-alloc), the
+no-op switch, the
 profiler's ranges, the bounded span log, lazy device time, and the one
 fetch helper against the three fetches it replaced.  CPU only, no JAX;
 the `cuda` test skips without a card:
@@ -175,8 +176,9 @@ def test_count_kmers_fetches_its_rows():
     assert rep["D2H"]["rows"] == n and rep["D2H"]["bytes"] == 16 * n
     assert rep["sort"]["rows"] == 1 << 16  # the bucket: padding too
     assert "cap-rerun" not in rep
-    # a CPU fetch is pageable: the fetch counters stay at zero
+    # a CPU fetch is pageable: no block taken, the fetch counters at zero
     assert "fetch-pinned" not in rep and "fetch-host-alloc" not in rep
+    assert "fetch-alloc" not in rep
     assert rep["count_kmers"]["call"] is True
     assert rep["upload"]["calls"] == 1
     assert rep["pack"]["bytes"] == rep["H2D"]["bytes"] > 0
@@ -441,17 +443,27 @@ def test_fetch_counters_on_the_card(cuda):
     held = bt.count_kmers(seqs, 31, device=cuda)
     rep = instrument.report()
     # the dropped table's block is taken again
-    assert rep["fetch-pinned"]["calls"] == 1
-    assert rep["fetch-pinned"]["bytes"] == n_bytes
+    assert rep["fetch-pinned"]["calls"] == rep["fetch-alloc"]["calls"] == 1
+    assert rep["fetch-pinned"]["bytes"] == rep["fetch-alloc"]["bytes"] == \
+        n_bytes
     assert "fetch-host-alloc" not in rep
     # with that table held, the next fetch needs a block of its own
     again = bt.count_kmers(seqs, 31, device=cuda)
     rep = instrument.report()
-    assert rep["fetch-pinned"]["calls"] == 2
+    assert rep["fetch-pinned"]["calls"] == rep["fetch-alloc"]["calls"] == 2
     assert rep.get("fetch-host-alloc", {"calls": 0})["calls"] <= 1
     assert np.array_equal(held.counts, again.counts)
-    assert by_name(instrument.spans())["fetch-pinned"][0]["parent"] == "D2H"
+    names = by_name(instrument.spans())
+    assert {s["parent"] for s in names["fetch-pinned"]} == {"D2H"}
+    assert {s["parent"] for s in names["fetch-alloc"]} == \
+        {s["parent"] for s in names["D2H"]}
+    assert {s["parent"] for s in names.get("fetch-host-alloc", [])} <= \
+        {"fetch-alloc"}
+    # each block is taken before its copy starts, the copy alone in D2H
+    for alloc, d2h in zip(names["fetch-alloc"], names["D2H"]):
+        assert alloc["end"] <= d2h["start"]
     # small tables stay pageable and uncounted
     instrument.reset()
     bt.count_kmers(reads(n_rows=40), 31, device=cuda)
     assert "fetch-pinned" not in instrument.report()
+    assert "fetch-alloc" not in instrument.report()

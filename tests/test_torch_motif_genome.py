@@ -198,9 +198,43 @@ def test_spans_of_a_scan():
     assert rep["D2H"]["bytes"] == 8 * n_matches
     assert "upload" not in rep  # resident since the first call
     # one match-mode launch and one wait for its count: one block
-    assert rep["pwm-fused"]["calls"] == rep["D2H-meta"]["calls"] == 1
-    assert rep["pwm-fused"]["rows"] == rep["pwm-scan"]["rows"]
+    assert rep["pwm-scan"]["calls"] == rep["D2H-meta"]["calls"] == 1
     assert "cap-rerun" not in rep
+    assert rep["pwm-matrix"]["calls"] == rep["result"]["calls"] == 1
+
+
+def test_result_span_of_a_call():
+    """The matches made into rows and in-row positions after the fetch:
+    one `result` span a call, under the call span, its rows the matches
+    returned; the call's self time and its children's time add up to
+    its duration."""
+    pwms, matrices = _motif(19, 7)
+    flat, lengths = _genome(19, 8)
+    threshold = M.threshold(matrices[0], 1e-2)
+    seqs = _seqs(flat, lengths)
+    bt.get_motif_matches(seqs, pwms[0], threshold, device="cpu")
+    for pwm in pwms:
+        instrument.reset()
+        m = bt.get_motif_matches(seqs, pwm, threshold, device="cpu")
+        rep = instrument.report()
+        spans = instrument.spans()
+        call, = [s for s in spans if s["name"] == "get_motif_matches"]
+        result, = [s for s in spans if s["name"] == "result"]
+        assert result["parent"] == "get_motif_matches"
+        assert result["call"] == call["call"] is not None
+        assert result["rows"] == rep["result"]["rows"] == \
+            int(m.lengths.sum()) == rep["D2H"]["rows"] > 0
+        # the last work of the call: after the fetch, inside the call
+        d2h, = [s for s in spans if s["name"] == "D2H"]
+        assert d2h["end"] <= result["start"] <= result["end"] <= \
+            call["end"]
+        children = sum(s["end"] - s["start"] for s in spans
+                       if s["parent"] == "get_motif_matches"
+                       and s["thread"] == call["thread"])
+        assert rep["get_motif_matches"]["self_seconds"] + children == \
+            pytest.approx(call["end"] - call["start"], abs=2e-6)
+        assert rep["get_motif_matches"]["self_seconds"] < \
+            call["end"] - call["start"] - (result["end"] - result["start"])
 
 
 @pytest.mark.parametrize("cap", [1, 1 << 20])
@@ -221,9 +255,7 @@ def test_fused_scan_launches_once_a_block(blocked, cap):
     np.testing.assert_array_equal(got, want.numpy())
     reruns = rep.get("cap-rerun", {}).get("calls", 0)
     assert rep["D2H-meta"]["calls"] == 2 * n_blocks  # both strands
-    assert rep["pwm-fused"]["calls"] == 2 * n_blocks + reruns
-    assert rep["pwm-scan"]["calls"] == rep["pwm-fused"]["calls"]
-    assert rep["pwm-scan"]["rows"] == rep["pwm-fused"]["rows"]
+    assert rep["pwm-scan"]["calls"] == 2 * n_blocks + reruns
     assert rep["pwm-compact"]["rows"] == len(got)
     if cap == 1:
         assert 1 <= reruns < 2 * n_blocks  # the larger cap carries on
@@ -363,6 +395,9 @@ def test_cell_runs_correct_on_a_small_genome(tmp_path, trace):
         positions = res["metrics"]["scored_positions_per_base"]["value"]
         assert 2.0 <= positions < 2.001
         assert "pwm_scores_roofline" not in res["metrics"]  # no kernel
+        assert res["metrics"]["result_ms_per_job"]["value"] > 0
+        # the CPU fetch is pageable: no block taken
+        assert "fetch_alloc_ms_per_job" not in res["metrics"]
     else:
         assert set(res["metrics"]) == {"setup_s", "job_mbases_per_s"}
 
@@ -460,7 +495,7 @@ def test_fused_scan_on_card_launches_once_a_block(cuda, monkeypatch, cap):
     reruns = rep.get("cap-rerun", {}).get("calls", 0)
     assert pwm_kernels.LAUNCHES["pwm_scores_kernel"] == 0
     assert pwm_kernels.LAUNCHES["pwm_scores_kernel.match"] == \
-        rep["pwm-fused"]["calls"] == 2 * n_blocks + reruns
+        rep["pwm-scan"]["calls"] == 2 * n_blocks + reruns
     assert rep["D2H-meta"]["calls"] == 2 * n_blocks
     assert (reruns >= 1) == (cap == 1)
     assert len(got) > 500
